@@ -1,0 +1,150 @@
+"""Backpressure primitives.
+
+Reference parity: Throttle (common/Throttle.h:28) — bounded counter with
+blocking get / non-blocking get_or_fail / put, used for message and op
+budgets.  Both a threading and an asyncio variant are provided because our
+messenger is asyncio while store backends use worker threads.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import threading
+from typing import Optional
+
+
+class Throttle:
+    def __init__(self, name: str, max_: int):
+        from ceph_tpu_torch.common.lockdep import make_thread_lock
+        self.name = name
+        self.max = max_
+        self.cur = 0
+        # condition over a lockdep-tracked lock (plain when off): the
+        # throttle is taken from both the event loop and worker
+        # threads, so it participates in the acquisition-order graph
+        self._cv = threading.Condition(
+            make_thread_lock(f"throttle:{name}"))
+
+    def get(self, c: int = 1) -> None:
+        if self.max <= 0:
+            return
+        with self._cv:
+            while self.cur + c > self.max and self.cur > 0:
+                self._cv.wait()
+            self.cur += c
+
+    def get_or_fail(self, c: int = 1) -> bool:
+        if self.max <= 0:
+            return True
+        with self._cv:
+            if self.cur + c > self.max and self.cur > 0:
+                return False
+            self.cur += c
+            return True
+
+    def put(self, c: int = 1) -> None:
+        if self.max <= 0:
+            return
+        with self._cv:
+            self.cur -= c
+            assert self.cur >= 0
+            self._cv.notify_all()
+
+    def reset_max(self, m: int) -> None:
+        with self._cv:
+            self.max = m
+            self._cv.notify_all()
+
+
+class AsyncThrottle:
+    """Single-event-loop throttle: FIFO-fair async get, SYNC put (so
+    completion paths that aren't coroutines can release), perf-friendly
+    introspection.  An over-budget get still admits when the throttle
+    is empty (a single op larger than the cap must not deadlock) —
+    same escape hatch as the reference Throttle."""
+
+    def __init__(self, name: str, max_: int):
+        self.name = name
+        self.max = max_
+        self.cur = 0
+        self.waited = 0               # times a get had to block
+        from collections import deque
+        self._waiters: "deque" = deque()   # (future, cost)
+
+    def _room(self, c: int) -> bool:
+        return self.cur + c <= self.max or self.cur == 0
+
+    async def get(self, c: int = 1) -> None:
+        if self.max <= 0:
+            return
+        if not self._waiters and self._room(c):
+            self.cur += c
+            return
+        self.waited += 1
+        fut = asyncio.get_running_loop().create_future()
+        self._waiters.append((fut, c))
+        try:
+            await fut
+        except asyncio.CancelledError:
+            if not fut.cancelled() and fut.done():
+                # admitted concurrently with cancellation: give it back
+                self.put(c)
+            else:
+                try:
+                    self._waiters.remove((fut, c))
+                except ValueError:
+                    pass
+            raise
+
+    def get_or_fail(self, c: int = 1) -> bool:
+        if self.max <= 0:
+            return True
+        if self._waiters or not self._room(c):
+            return False
+        self.cur += c
+        return True
+
+    def get_later(self, c: int = 1) -> "asyncio.Future":
+        """SYNCHRONOUSLY join the queue: the returned future resolves
+        once the budget is granted (FIFO with get()).  Lets a caller
+        that must park work reserve its place in line before yielding
+        the loop — otherwise a later get_or_fail could overtake it
+        (the batch-unpack ordering hazard).  The budget is already
+        charged when the future resolves; a caller abandoning the
+        wait must put() it back if the future completed."""
+        loop = asyncio.get_running_loop()
+        fut = loop.create_future()
+        if self.max <= 0 or (not self._waiters and self._room(c)):
+            if self.max > 0:
+                self.cur += c
+            fut.set_result(None)
+            return fut
+        self.waited += 1
+        self._waiters.append((fut, c))
+        return fut
+
+    def put(self, c: int = 1) -> None:
+        if self.max <= 0:
+            return
+        self.cur -= c
+        assert self.cur >= 0
+        while self._waiters:
+            fut, cost = self._waiters[0]
+            if fut.done():            # cancelled waiter
+                self._waiters.popleft()
+                continue
+            if not self._room(cost):
+                break
+            self._waiters.popleft()
+            self.cur += cost
+            fut.set_result(None)
+
+    def open_wide(self) -> None:
+        """Disable the limit and admit every parked waiter — teardown
+        path (a dying endpoint must not strand producer tasks on a
+        budget nobody will release)."""
+        self.max = 0
+        while self._waiters:
+            fut, _ = self._waiters.popleft()
+            if not fut.done():
+                fut.set_result(None)

@@ -1,0 +1,4 @@
+"""Operator CLIs (the port's copy of ``ceph_tpu.tools``).
+
+- ec_benchmark: ceph_erasure_code_benchmark contract
+"""
