@@ -34,11 +34,13 @@ class Built:
     """A loaded kernel library and how it was built."""
     name: str
     lib: ctypes.CDLL
+    path: str             # the shared library's file
     seconds: float        # nvcc wall time; 0.0 when an earlier build was loaded
     ptxas: str            # nvcc's -Xptxas -v report (registers, shared memory)
 
 
-_lock = threading.Lock()
+_lock = threading.Lock()                  # guards the two dicts below
+_name_locks: Dict[str, threading.Lock] = {}
 _built: Dict[str, Built] = {}
 
 
@@ -59,8 +61,12 @@ def nvcc_path() -> str:
 
 
 def build(name: str) -> Built:
-    """Compile (once per process and source) and load ``csrc/<name>.cu``."""
+    """Compile (once per process and source) and load ``csrc/<name>.cu``.
+    Builds of different sources may run at the same time (one nvcc
+    each, from separate threads); one source builds once."""
     with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         if name in _built:
             return _built[name]
         src = os.path.join(CSRC, f"{name}.cu")
@@ -86,6 +92,7 @@ def build(name: str) -> Built:
             os.replace(tmp, path)
         with open(log) as f:
             ptxas = f.read()
-        built = Built(name, ctypes.CDLL(path), seconds, ptxas)
-        _built[name] = built
+        built = Built(name, ctypes.CDLL(path), path, seconds, ptxas)
+        with _lock:
+            _built[name] = built
         return built

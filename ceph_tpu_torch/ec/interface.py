@@ -173,11 +173,7 @@ class ErasureCode(ABC):
     def create_rule(self, crush_map, name: str,
                     failure_domain: str = "host") -> int:
         """Reference create_ruleset (interface :181): an indep rule choosing
-        k+m distinct failure domains for positionally-stable EC placement.
-
-        Needs ``crush/builder.py``, which the port carries over with the
-        CRUSH slice; until then this raises."""
-        raise NotImplementedError(
-            "create_rule needs the CRUSH builder, which the port has not "
-            "carried over yet (the CRUSH slice: crush/ and "
-            "ops/crush_kernel.py)")
+        k+m distinct failure domains for positionally-stable EC placement."""
+        from ceph_tpu_torch.crush.builder import make_erasure_rule
+        return make_erasure_rule(crush_map, name, self.get_chunk_count(),
+                                 failure_domain)

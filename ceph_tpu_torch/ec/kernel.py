@@ -9,6 +9,11 @@ a degraded read or a rebuild.
     of ``csrc/gf_apply.cu`` (the split-nibble table method; it replaces
     the TPU kernel ``ceph_tpu/ec/kernel.py:_ec_fused_kernel``) or raises.
     On a CPU tensor, and only there, it runs the plain version.
+  * ``gf_apply_checksum`` is the variant tuner's probe: the same apply
+    with the output summed on the device (``out.astype(int32).sum()``,
+    wrapped mod 2^32), so one scalar crosses to the host.  It replaces
+    ``_pallas_probe_sum``; ``gf_apply_checksum_plain`` is its plain
+    version.
   * ``gf_apply_plain`` is the plain PyTorch version.  It mirrors the JAX
     package's ``_apply_bitmatrix``: unpack the k byte rows to 8k bit-planes,
     multiply by the (8r x 8k) 0/1 bit-matrix, take each sum mod 2, repack.
@@ -19,15 +24,22 @@ a degraded read or a rebuild.
     plain version's bit-matrix.  ``MatrixApply`` builds them once per
     matrix; ``matrix_apply`` caches one per (matrix, device).
 
-The JAX package's variant selection (``set_fused_config``, ``TUNE_SPACE``,
-``autotune``: TPU tile, plane layout and pack engine) has no counterpart
-yet; tuning over this kernel's own variants is later work.
+Variant selection follows the JAX package's (``set_fused_config``,
+``_resolve_fused_config``, ``TUNE_SPACE``, ``autotune``), over this
+kernel's own axes: (threads per block, lanes per thread, output rows per
+block), every one built for sm_90a in the same nvcc run.  The TPU's axes
+(tile, plane layout, pack engine) do not exist here.  The config is
+resolved at every launch, outside anything cached, so a later
+``set_fused_config`` reaches every later call; a shape-bound winner (the
+decode pass) is keyed by the (r, k) matrix shape, which the reference's
+[8r, 8k] bit-matrix shape stands for one to one.
 """
 
 from __future__ import annotations
 
 import ctypes
 import threading
+import time
 from functools import lru_cache
 from typing import NamedTuple, Optional
 
@@ -42,9 +54,61 @@ from ceph_tpu_torch.ec import gf256
 #: launches of the CUDA kernel, counted where ``gf_apply`` launches it and
 #: nowhere else (a run sets it to 0 and reads it to show which path ran)
 gf_apply_launches = 0
+#: launches of the checksum probe, counted where ``gf_apply_checksum``
+#: launches it
+gf_apply_checksum_launches = 0
 _count_lock = threading.Lock()
 _lib_lock = threading.Lock()
 _lib = None
+
+
+#: variant space of csrc/gf_apply.cu (GF_TUNE_SPACE): (threads per block,
+#: lanes per thread, output rows per block); the first is the champion
+#: default
+TUNE_SPACE = [
+    (256, 16, 8),
+    (128, 16, 8),
+    (256, 32, 8),
+    (256, 16, 4),
+]
+
+_EC_THREADS, _EC_LANES, _EC_ROWS = TUNE_SPACE[0]
+
+#: per-matrix-shape overrides, keyed by the (r, k) code matrix shape:
+#: encode (parity rows of the generator) and decode (rebuild matrices)
+#: present different shapes, and a decode autotune pass installs here
+#: without clobbering the encode winner
+_EC_SHAPE_CFG: dict = {}
+
+
+def set_fused_config(threads: int = None, lanes: int = None,
+                     rows: int = None, shape: tuple = None) -> dict:
+    """Set the kernel variant (autotune).  With ``shape`` (an (r, k)
+    matrix shape) the config binds to that matrix shape only, its unset
+    fields taken from the current process-wide values; without it the
+    process-wide defaults change.  A variant not in TUNE_SPACE raises."""
+    global _EC_THREADS, _EC_LANES, _EC_ROWS
+    base = (_EC_SHAPE_CFG.get(tuple(shape), (_EC_THREADS, _EC_LANES,
+                                             _EC_ROWS))
+            if shape is not None else (_EC_THREADS, _EC_LANES, _EC_ROWS))
+    cfg = (int(threads) if threads else base[0],
+           int(lanes) if lanes else base[1],
+           int(rows) if rows else base[2])
+    if cfg not in TUNE_SPACE:
+        raise ValueError(f"variant {cfg} is not in TUNE_SPACE {TUNE_SPACE}")
+    if shape is not None:
+        _EC_SHAPE_CFG[tuple(shape)] = cfg
+        return {"threads": cfg[0], "lanes": cfg[1], "rows": cfg[2],
+                "shape": tuple(shape)}
+    _EC_THREADS, _EC_LANES, _EC_ROWS = cfg
+    return {"threads": cfg[0], "lanes": cfg[1], "rows": cfg[2]}
+
+
+def _resolve_fused_config(shape: tuple) -> tuple:
+    """(threads, lanes, rows) for one launch on an (r, k) matrix:
+    shape-bound winner first, process-wide defaults otherwise."""
+    return _EC_SHAPE_CFG.get(tuple(shape),
+                             (_EC_THREADS, _EC_LANES, _EC_ROWS))
 
 
 class MatrixOperands(NamedTuple):
@@ -99,6 +163,15 @@ def gf_apply_plain(bitmat: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def gf_apply_checksum_plain(bitmat: torch.Tensor,
+                            data: torch.Tensor) -> torch.Tensor:
+    """Plain version of the probe: ``gf_apply_plain(...)`` summed as int32
+    with two's-complement wraparound (XLA's int32 sum; ``torch.sum`` of
+    int32 returns int64 and does not wrap).  A 0-d int32 tensor."""
+    s = gf_apply_plain(bitmat, data).to(torch.int64).sum()
+    return ((s + 2**31) % 2**32 - 2**31).to(torch.int32)
+
+
 def _library():
     """The kernel's library, built from csrc/gf_apply.cu at first use."""
     global _lib
@@ -106,28 +179,36 @@ def _library():
         if _lib is None:
             from ceph_tpu_torch.common.cuda_build import build
             lib = build("gf_apply").lib
-            lib.gf_apply.argtypes = [
-                ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                ctypes.c_void_p, ctypes.c_longlong,
-                ctypes.c_void_p, ctypes.c_longlong,
-                ctypes.c_longlong, ctypes.c_void_p]
-            lib.gf_apply.restype = ctypes.c_int
-            lib.gf_apply_error_string.argtypes = [ctypes.c_int]
+            vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+            lib.gf_apply.argtypes = [vp, ci, ci, vp, cll, vp, cll, cll,
+                                     ci, ci, ci, vp]
+            lib.gf_apply.restype = ci
+            lib.gf_apply_checksum.argtypes = [vp, ci, ci, vp, cll, cll,
+                                              ci, ci, ci, vp, vp]
+            lib.gf_apply_checksum.restype = ci
+            lib.gf_tune_space.argtypes = [vp, ci]
+            lib.gf_tune_space.restype = ci
+            lib.gf_apply_error_string.argtypes = [ci]
             lib.gf_apply_error_string.restype = ctypes.c_char_p
+            buf = (ctypes.c_int * (3 * 16))()
+            n = lib.gf_tune_space(ctypes.addressof(buf), 16)
+            built = [tuple(buf[3 * i:3 * i + 3]) for i in range(min(n, 16))]
+            if built != TUNE_SPACE:
+                raise RuntimeError(f"csrc/gf_apply.cu builds {built}, "
+                                   f"TUNE_SPACE is {TUNE_SPACE}")
             _lib = lib
         return _lib
 
 
-def gf_apply(ops: MatrixOperands, data: torch.Tensor,
-             out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """out[r, L] = ops.mat @ data over GF(2^8), on data's device.
+def _variant(ops: MatrixOperands, config: Optional[tuple]) -> tuple:
+    cfg = (tuple(config) if config is not None
+           else _resolve_fused_config(ops.mat.shape))
+    if cfg not in TUNE_SPACE:
+        raise ValueError(f"variant {cfg} is not in TUNE_SPACE {TUNE_SPACE}")
+    return cfg
 
-    ``data`` is [k, L] uint8 with contiguous lanes; its rows may be
-    strided (a window of a wider buffer).  ``out``, when given, is an
-    [r, L] uint8 tensor on the same device, laid out the same way, that
-    receives the result; otherwise it is allocated.  A CUDA tensor
-    launches the kernel, a CPU tensor runs the plain version; any other
-    layout or device raises."""
+
+def _check_data(ops: MatrixOperands, data: torch.Tensor) -> None:
     r, k = ops.mat.shape
     if data.dtype != torch.uint8 or data.dim() != 2 or data.shape[0] != k:
         raise ValueError(f"data must be [k={k}, L] uint8, got "
@@ -135,6 +216,24 @@ def gf_apply(ops: MatrixOperands, data: torch.Tensor,
     if data.device != ops.tables.device:
         raise ValueError(f"data on {data.device}, matrix operands on "
                          f"{ops.tables.device}")
+
+
+def gf_apply(ops: MatrixOperands, data: torch.Tensor,
+             out: Optional[torch.Tensor] = None,
+             config: Optional[tuple] = None) -> torch.Tensor:
+    """out[r, L] = ops.mat @ data over GF(2^8), on data's device.
+
+    ``data`` is [k, L] uint8 with contiguous lanes; its rows may be
+    strided (a window of a wider buffer).  ``out``, when given, is an
+    [r, L] uint8 tensor on the same device, laid out the same way, that
+    receives the result; otherwise it is allocated.  ``config`` names a
+    TUNE_SPACE variant; by default it is resolved for this (r, k) at
+    this launch (``_resolve_fused_config``).  A CUDA tensor launches the
+    kernel, a CPU tensor runs the plain version; any other layout or
+    device raises."""
+    r, k = ops.mat.shape
+    _check_data(ops, data)
+    cfg = _variant(ops, config)
     L = data.shape[1]
     if out is None:
         out = torch.empty((r, L), dtype=torch.uint8, device=data.device)
@@ -157,7 +256,7 @@ def gf_apply(ops: MatrixOperands, data: torch.Tensor,
         stream = torch.cuda.current_stream(data.device).cuda_stream
         rc = lib.gf_apply(ops.tables.data_ptr(), r, k, data.data_ptr(),
                           data.stride(0), out.data_ptr(), out.stride(0), L,
-                          stream)
+                          *cfg, stream)
     if rc != 0:
         raise RuntimeError(f"gf_apply launch failed: CUDA error {rc} "
                            f"({lib.gf_apply_error_string(rc).decode()})")
@@ -165,6 +264,127 @@ def gf_apply(ops: MatrixOperands, data: torch.Tensor,
     with _count_lock:
         gf_apply_launches += 1
     return out
+
+
+def gf_apply_checksum(ops: MatrixOperands, data: torch.Tensor,
+                      config: Optional[tuple] = None) -> torch.Tensor:
+    """The probe: the int32 sum, wrapped mod 2^32, of the bytes of
+    ``ops.mat @ data`` over GF(2^8), as a 0-d int32 tensor on data's
+    device; the product itself is never written.  ``data`` and
+    ``config`` as in ``gf_apply``.  A CUDA tensor launches the kernel's
+    checksum entry, a CPU tensor runs the plain version."""
+    r, k = ops.mat.shape
+    _check_data(ops, data)
+    cfg = _variant(ops, config)
+    if data.device.type == "cpu":
+        return gf_apply_checksum_plain(ops.bitmat, data)
+    if data.device.type != "cuda":
+        raise ValueError(f"unsupported device {data.device}")
+    L = data.shape[1]
+    if L > 1 and data.stride(1) != 1:
+        raise ValueError(f"lanes must be contiguous (stride 1), got "
+                         f"strides {data.stride()}")
+    total = torch.empty((), dtype=torch.int32, device=data.device)
+    lib = _library()
+    with torch.cuda.device(data.device):
+        stream = torch.cuda.current_stream(data.device).cuda_stream
+        rc = lib.gf_apply_checksum(ops.tables.data_ptr(), r, k,
+                                   data.data_ptr(), data.stride(0), L,
+                                   *cfg, total.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"gf_apply_checksum launch failed: CUDA error "
+                           f"{rc} ({lib.gf_apply_error_string(rc).decode()})")
+    global gf_apply_checksum_launches
+    with _count_lock:
+        gf_apply_checksum_launches += 1
+    return total
+
+
+def _probe_seconds(ops: MatrixOperands, data: torch.Tensor,
+                   cfg: tuple) -> float:
+    """One probe and its one-scalar fetch: on a card, CUDA events around
+    the launch and the scalar's copy to pinned host memory, both in
+    stream order (so no host-side gap is timed); the host clock on the
+    CPU."""
+    if data.device.type == "cuda":
+        host = torch.empty((), dtype=torch.int32, pin_memory=True)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        host.copy_(gf_apply_checksum(ops, data, cfg), non_blocking=True)
+        e1.record()
+        e1.synchronize()
+        int(host)
+        return e0.elapsed_time(e1) / 1e3
+    t0 = time.perf_counter()
+    int(gf_apply_checksum(ops, data, cfg))
+    return time.perf_counter() - t0
+
+
+def autotune(mat: np.ndarray, length: int = 1 << 25, trials: int = 3,
+             budget_s: Optional[float] = None, install: str = "global",
+             device: DeviceLike = DEFAULT_DEVICE) -> dict:
+    """Time every TUNE_SPACE variant on ``device`` and install the
+    winner.  Returns {threads, lanes, rows, rate_mb_s[, shape]}.
+
+    ``install="global"`` sets the process-wide default (the encode
+    pass); ``install="shape"`` binds the winner to THIS matrix's (r, k)
+    shape only (the decode pass must not clobber the encode winner).
+
+    Each variant is timed by the SLOPE between operands of ``length//4``
+    and ``length`` input bytes (marginal bytes/second), each warmed once
+    and then given the best of ``trials`` probes (``gf_apply_checksum``
+    plus its one-scalar fetch), so fixed per-call costs cancel.  With
+    ``budget_s``, a variant is only STARTED when the worst variant cost
+    seen so far still fits the remaining budget.  When no slope is
+    positive (noise swamped every one), TUNE_SPACE[0] is installed with
+    ``"note": "slope-noise fallback"``.
+
+    Unlike the JAX package's tuner, which skips a variant that raises,
+    this one catches nothing: every TUNE_SPACE entry is built for sm_90a
+    and must run, so a failed build or launch is a fault and raises."""
+    if install not in ("global", "shape"):
+        raise ValueError(f"install must be 'global' or 'shape', got "
+                         f"{install!r}")
+    t_start = time.monotonic()
+    ops = from_reference_matrix(mat, device)
+    r, k = ops.mat.shape
+    rng = np.random.default_rng(3)
+    sizes = (length // 4, length)
+    datas = [torch.from_numpy(
+        rng.integers(0, 256, (k, n // k), dtype=np.uint8)).to(ops.tables.device)
+        for n in sizes]
+    best = None
+    worst_cost = 0.0
+    for cfg in TUNE_SPACE:
+        elapsed = time.monotonic() - t_start
+        if budget_s is not None and elapsed + worst_cost > budget_s:
+            break
+        t_var = time.monotonic()
+        times = []
+        for d in datas:
+            int(gf_apply_checksum(ops, d, cfg))          # warm
+            times.append(min(_probe_seconds(ops, d, cfg)
+                             for _ in range(trials)))
+        worst_cost = max(worst_cost, time.monotonic() - t_var)
+        if times[1] <= times[0]:
+            continue                  # noise swamped the slope
+        rate = (sizes[1] - sizes[0]) / (times[1] - times[0]) / 1e6
+        if best is None or rate > best["rate_mb_s"]:
+            best = {"threads": cfg[0], "lanes": cfg[1], "rows": cfg[2],
+                    "rate_mb_s": round(rate, 1)}
+    shape = (r, k) if install == "shape" else None
+    if best:
+        set_fused_config(best["threads"], best["lanes"], best["rows"],
+                         shape=shape)
+    else:
+        t, la, ro = TUNE_SPACE[0]
+        set_fused_config(t, la, ro, shape=shape)
+        best = {"threads": t, "lanes": la, "rows": ro, "rate_mb_s": None,
+                "note": "slope-noise fallback"}
+    if shape is not None:
+        best["shape"] = shape
+    return best
 
 
 class MatrixApply:
@@ -194,8 +414,10 @@ class MatrixApply:
                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
         """On-device variant for callers that keep data on the device;
         ``out`` as in ``gf_apply``."""
-        devstats.note_launch("ec_apply", (self._sig, tuple(chunks.shape)))
-        return gf_apply(self.ops, chunks, out)
+        cfg = _resolve_fused_config(self.mat.shape)
+        devstats.note_launch("ec_apply",
+                             (self._sig, tuple(chunks.shape), cfg))
+        return gf_apply(self.ops, chunks, out, cfg)
 
 
 @lru_cache(maxsize=256)

@@ -1,2 +1,3 @@
-"""OSD layer (the port's copy of ``ceph_tpu.osd``; so far only the EC
-batch collector, ``ec_queue``)."""
+"""OSD layer (the port's copy of ``ceph_tpu.osd``): the EC batch
+collector (``ec_queue``), the placement types (``types``) and the
+OSDMap (``osdmap``)."""

@@ -2,15 +2,21 @@
 """Chip smoke test of the port: ``python3 chip_smoke.py`` on a machine with
 one CUDA card, from the root of a checkout.
 
-It drives ceph_tpu_torch's EC write / degraded-read data path on the card
-and fails (exit code 1, no result line) on any fault:
+It drives ceph_tpu_torch's EC write / degraded-read data path, the EC
+variant tuner, and CRUSH placement up to the OSDMap and osdmaptool on the
+card, and fails (exit code 1, no result line) on any fault:
 
-  1. prints the card's name and power limit, builds the matrix-apply
-     kernel (csrc/gf_apply.cu, nvcc for sm_90a) and prints the build time
-     and nvcc's register and shared-memory report;
-  2. holds the kernel against its plain PyTorch version on the card, bit
-     for bit, at the main path's shapes and at odd ones, and against the
-     numpy host path on small inputs;
+  1. prints the card's name and power limit, builds the kernels
+     (csrc/gf_apply.cu and csrc/crush_map.cu, one nvcc each, started
+     together, for sm_90a) and prints each build time and nvcc's register,
+     spill and shared-memory report for every instantiation; counts the
+     instructions of one straw2 draw in the built library's SASS
+     (crush_probe.py), which the CRUSH kernels' bounds rest on;
+  2. holds the matrix-apply kernel against its plain PyTorch version on
+     the card, bit for bit, at the main path's shapes and at odd ones, and
+     against the numpy host path on small inputs; then every TUNE_SPACE
+     variant and the checksum probe (gf_apply_checksum) at the same
+     shapes, and the probe on a sum that wraps past 2^31;
   3. drives the main path: an OSD context and ECBatchQueue(mode="on",
      device="cuda"); 64 concurrent 4 MiB objects (RS k=8 m=4) split by the
      codec and encoded through the queue, then two rounds of degraded
@@ -19,29 +25,61 @@ and fails (exit code 1, no result line) on any fault:
      before and read just after, and must equal the queue's launches;
   4. runs the ec_benchmark entry point at 256 MiB, encode and decode;
   5. times the kernel and its plain version at the encode window
-     [8, 4 Mi] -> [4, 4 Mi] with CUDA events and prints the ``kernels``
-     line.
+     [8, 4 Mi] -> [4, 4 Mi] with CUDA events, and every variant;
+  6. the variant tuner's path, as the JAX package's bench runs it: autotune
+     the encode matrix (installed process-wide), then the decode matrix
+     for lost chunks {0, 3} (bound to its shape), then encode and decode
+     rates by the slope method at 64 MiB and 256 MiB, checked bit for bit
+     against the numpy host apply; the probe's launch count is set to 0
+     just before and read just after;
+  7. CRUSH: 1,000,000 inputs through batch_do_rule_arrays(engine="device")
+     for a replicated firstn x3 and an EC indep x6 rule on 1024 OSDs
+     (128 hosts x 8) and a firstn x3 rule on the same OSDs behind 16
+     racks, with a few OSDs out or reweighted; every row equals the plain
+     torch descent on the card, a spread sample of 4096 inputs equals the
+     numpy host engine and the scalar mapper; then the straw2 winner grid
+     of the 128-host root against its plain version;
+  8. the OSDMap: a replicated pool (size 3, pg_num 32768) and an EC pool
+     (k=4 m=2, pg_num 16384) on the same 1024 OSDs, some out, reweighted
+     or down, through OSDMap.map_pgs_batch(engine="device") and
+     osdmaptool --test-map-pgs (its default engine, the device), checked
+     against engine="host"; then map_pgs_batch's steps are timed and the
+     descent kernel alone at each pool's size;
+  9. times the probe, the descent and the winner grid beside their plain
+     versions and bounds, and prints the ``kernels`` line.
 
 The last line of its output is ``{"ok": true, "device": {...}}``.  It
 imports nothing of JAX and nothing of the JAX package.
 """
 
 import asyncio
+import concurrent.futures
 import contextlib
 import io
 import json
+import multiprocessing
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
+# SM clocks the whole card offers per second: 132 SMs x 1.98 GHz (the
+# H100 SXM's maximum boost clock).  A CRUSH kernel's bound is its straw2
+# draws times the SM clocks one draw's instructions need on their busiest
+# pipe, counted from the built library's SASS (crush_probe.draw_cost).
+SM_CLOCKS_PER_S = 132 * 1.98e9
 
 K, M = 8, 4
 N_OBJECTS, OBJECT_BYTES = 64, 4 << 20
 SEED = 20261017
+CRUSH_N = 1_000_000             # inputs per rule (the bench's CRUSH stage)
+CRUSH_HOSTS, CRUSH_PER_HOST = 128, 8
+SAMPLE = 4096                   # spread sample held against host and scalar
 
 
 class SmokeFailure(Exception):
@@ -51,6 +89,466 @@ class SmokeFailure(Exception):
 def check(cond, what):
     if not cond:
         raise SmokeFailure(what)
+
+
+def median_ms(torch, fn, reps, flush=None):
+    """Median CUDA-event time of fn() over reps runs, after two warm-ups;
+    with ``flush`` (a large device buffer), L2 is evicted before each."""
+    fn()
+    fn()
+    times = []
+    for _ in range(reps):
+        if flush is not None:
+            flush.zero_()        # evicts L2; the launch queues behind it
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return statistics.median(times)
+
+
+def check_variants(torch, np, gf256, kernel, dev, rng, cases):
+    """Every TUNE_SPACE variant of the apply, and the checksum probe,
+    against the plain versions at phase 2's shapes; the probe also on a
+    sum that wraps.  Returns the probe's mismatch count (0)."""
+    t0 = time.perf_counter()
+    k2_bad = 0
+    for label, mat, L in cases:
+        ops = kernel.from_reference_matrix(mat, dev)
+        data = torch.from_numpy(
+            rng.integers(0, 256, (mat.shape[1], L), dtype=np.uint8)).to(dev)
+        want = kernel.gf_apply_plain(ops.bitmat, data)
+        want_sum = int(kernel.gf_apply_checksum_plain(ops.bitmat, data))
+        for cfg in kernel.TUNE_SPACE:
+            got = kernel.gf_apply(ops, data, config=cfg)
+            bad = int((got != want).sum().item())
+            check(bad == 0, f"variant {cfg} on {label}: {bad} bytes differ")
+            got_sum = int(kernel.gf_apply_checksum(ops, data, config=cfg))
+            k2_bad += got_sum != want_sum
+            check(got_sum == want_sum, f"checksum {cfg} on {label}: "
+                                       f"{got_sum} != {want_sum}")
+    # four unit rows copy 4 x 2.2 Mi bytes >= 0xF0: the sum passes 2^31
+    ops = kernel.from_reference_matrix(np.eye(4, dtype=np.uint8), dev)
+    data = torch.from_numpy(rng.integers(0xF0, 0x100, (4, 2_200_003),
+                                         dtype=np.uint8)).to(dev)
+    exact = int(data.to(torch.int64).sum())
+    wrapped = (exact + 2**31) % 2**32 - 2**31
+    check(exact > 2**31 and wrapped < 0, "the wrap case does not wrap")
+    for cfg in kernel.TUNE_SPACE:
+        got = int(kernel.gf_apply_checksum(ops, data, config=cfg))
+        k2_bad += got != wrapped
+        check(got == wrapped, f"checksum {cfg} wrap: {got} != {wrapped}")
+    check(int(kernel.gf_apply_checksum_plain(ops.bitmat, data)) == wrapped,
+          "plain checksum does not wrap")
+    print(f"phase variants: {len(kernel.TUNE_SPACE)} variants x "
+          f"{len(cases)} cases bit-exact, checksum equal to the plain "
+          f"wrapped sum (wrap case {exact} -> {wrapped}) "
+          f"({time.perf_counter() - t0:.3f} s)")
+    return k2_bad
+
+
+def tuner_path(torch, np, gf256, kernel, dev, smi):
+    """The JAX package's bench tpu_ec sequence on the port; returns the
+    probe's launches on this path."""
+    gen = gf256.rs_vandermonde_matrix(K, M)
+    present = [1, 2, 4, 5, 6, 7, 8, 9]
+    dec = gf256.decode_matrix(gen, present, [0, 3])
+    folded = np.random.default_rng(0).integers(
+        0, 256, (K, 32 * (1 << 17)), dtype=np.uint8)
+    surv = np.concatenate([folded, gf256.host_apply(gen[K:], folded)])
+    surv = np.ascontiguousarray(surv[present])
+    gen_t = torch.Generator(device=dev)
+    gen_t.manual_seed(7)
+
+    def apply_rate(mat, host_in):
+        """MB/s of input by the slope between 64 MiB and 256 MiB probes
+        (best of 5 each, installed variant), and the output for host_in."""
+        ops = kernel.from_reference_matrix(mat, dev)
+        cfg = kernel._resolve_fused_config(ops.mat.shape)
+        k = mat.shape[1]
+        sizes, times = (1 << 26, 1 << 28), []
+        for nbytes in sizes:
+            d = torch.randint(0, 256, (k, nbytes // k), dtype=torch.uint8,
+                              device=dev, generator=gen_t)
+            int(kernel.gf_apply_checksum(ops, d))
+            times.append(min(kernel._probe_seconds(ops, d, cfg)
+                             for _ in range(5)))
+            del d
+        rate = (sizes[1] - sizes[0]) / (times[1] - times[0]) / 1e6
+        out = kernel.gf_apply(ops, torch.from_numpy(host_in).to(dev))
+        return rate, out.cpu().numpy(), cfg, times
+
+    kernel.gf_apply_checksum_launches = 0
+    t0 = time.perf_counter()
+    tuned = kernel.autotune(gen[K:], length=1 << 24, trials=2,
+                            budget_s=120, device=dev)
+    print(f"phase tuner: encode winner {tuned} ({time.perf_counter() - t0:.3f}"
+          f" s); card {smi}")
+    t0 = time.perf_counter()
+    dec_tuned = kernel.autotune(dec, length=1 << 24, trials=2, budget_s=60,
+                                install="shape", device=dev)
+    print(f"phase tuner: decode winner {dec_tuned} "
+          f"({time.perf_counter() - t0:.3f} s); card {smi}")
+    enc_rate, got, enc_cfg, enc_t = apply_rate(gen[K:], folded)
+    check(np.array_equal(got[:, :65536],
+                         gf256.host_apply(gen[K:], folded[:, :65536])),
+          "tuned encode != numpy host apply")
+    dec_rate, got, dec_cfg, dec_t = apply_rate(dec, surv)
+    check(np.array_equal(got[:, :65536], folded[[0, 3]][:, :65536]),
+          "tuned decode != the lost chunks")
+    launches = kernel.gf_apply_checksum_launches
+    check(launches > 0, "the tuner path launched no probe")
+    print(f"phase tuner: encode {enc_rate:,.1f} MB/s with {enc_cfg} "
+          f"(64 MiB {enc_t[0] * 1e3:.4f} ms, 256 MiB {enc_t[1] * 1e3:.4f} "
+          f"ms), decode {dec_rate:,.1f} MB/s with {dec_cfg} (64 MiB "
+          f"{dec_t[0] * 1e3:.4f} ms, 256 MiB {dec_t[1] * 1e3:.4f} ms); "
+          f"bit-exact against the host; probe launches {launches}; "
+          f"card {smi}")
+    return launches
+
+
+def _scalar_rows(job):
+    """Worker: the scalar mapper over a slice of the sample (runs in a
+    spawned process; imports the port's CRUSH host layer only)."""
+    map_bytes, ruleno, size, weights, xs = job
+    from ceph_tpu_torch.crush.mapper import do_rule
+    from ceph_tpu_torch.crush.types import CrushMap
+    m = CrushMap.from_bytes(map_bytes)
+    return [do_rule(m, ruleno, int(x), size, weights) for x in xs]
+
+
+def _rows(osds, counts):
+    if counts is None:
+        return [list(map(int, r)) for r in osds]
+    return [list(map(int, r[:c])) for r, c in zip(osds, counts)]
+
+
+def crush_maps():
+    """The bench's CRUSH contract: 1024 OSDs as 128 hosts x 8 with a
+    replicated firstn x3 and an EC indep x6 rule, and the same OSDs
+    behind 16 racks with a firstn x3 rule; a few OSDs out or at 0x8000."""
+    from ceph_tpu_torch.crush.builder import (build_hierarchy,
+                                              make_erasure_rule,
+                                              make_replicated_rule)
+    from ceph_tpu_torch.crush.types import CrushMap
+    n = CRUSH_HOSTS * CRUSH_PER_HOST
+    m = CrushMap()
+    m.max_devices = n
+    build_hierarchy(m, n, CRUSH_PER_HOST)
+    rep = make_replicated_rule(m, "rep")
+    ec = make_erasure_rule(m, "ec", size=6)
+    m3 = CrushMap()
+    m3.max_devices = n
+    build_hierarchy(m3, n, CRUSH_PER_HOST, hosts_per_rack=8)
+    rep3 = make_replicated_rule(m3, "rep3")
+    w = [0x10000] * n
+    for o in (3, 77, 500, 901):
+        w[o] = 0
+    for o in (10, 300, 640, 1000):
+        w[o] = 0x8000
+    return [("firstn x3, 2-level", m, rep, 3),
+            ("indep x6, 2-level", m, ec, 6),
+            ("firstn x3, 3-level", m3, rep3, 3)], w
+
+
+def crush_path(torch, np, dev, smi, draw_s):
+    from ceph_tpu_torch.ops import crush_kernel as ck
+    rules, w = crush_maps()
+    xs = np.arange(CRUSH_N, dtype=np.int64)
+    pick = np.linspace(0, CRUSH_N - 1, SAMPLE).astype(np.int64)
+    workers = min(8, os.cpu_count() or 1)
+    pool = concurrent.futures.ProcessPoolExecutor(
+        workers, mp_context=multiprocessing.get_context("spawn"))
+    with pool:
+        scalar = []
+        for _, m, rule, size in rules:
+            raw = m.to_bytes()
+            scalar.append([pool.submit(_scalar_rows,
+                                       (raw, rule, size, w, part.tolist()))
+                           for part in np.array_split(xs[pick], workers)])
+
+        # the main path: every rule's 1M inputs through the device engine
+        for _, m, rule, size in rules:
+            ck.warmup(m, rule, size, w, dev)
+        ck.crush_map_launches = 0
+        results, walls = [], []
+        for _, m, rule, size in rules:
+            t0 = time.perf_counter()
+            results.append(ck.batch_do_rule_arrays(m, rule, xs, size, w,
+                                                   engine="device",
+                                                   device=dev))
+            walls.append(time.perf_counter() - t0)
+        map_launches = ck.crush_map_launches
+        check(map_launches == len(rules),
+              f"crush_map launched {map_launches} times for {len(rules)} "
+              f"rules")
+
+        out = {"map_launches": map_launches, "rules": []}
+        total = {"bad": 0, "err": 0, "ms": 0.0, "plain_ms": 0.0,
+                 "ops": 0, "bytes": 0}
+        xs_d = torch.from_numpy(xs).to(dev)
+        osd_w = torch.tensor(w, dtype=torch.int64, device=dev)
+        for (name, m, rule, size), (osds, counts), wall in zip(
+                rules, results, walls):
+            seg = ck.compile_rule(m, rule).segments[0]
+            eng = ck._device_engine(seg, w, dev)
+            wts = eng.weights(seg)
+
+            def kern():
+                return ck.crush_map(eng, xs_d, size, size, wts, osd_w)
+            packed = kern()
+            ms = median_ms(torch, kern, 5)
+            work = {}
+            torch.cuda.synchronize()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            plain = ck.crush_map_plain(eng, xs_d, size, size, wts, osd_w,
+                                       work)
+            e1.record()
+            torch.cuda.synchronize()
+            plain_ms = e0.elapsed_time(e1)
+            diff = (packed.to(torch.int64) - plain.to(torch.int64)).abs()
+            bad = int((diff != 0).any(dim=1).sum())
+            err = int(diff.max())
+            host = packed.cpu().numpy()
+            check(np.array_equal(host[:, :size], osds)
+                  and (counts is None or np.array_equal(host[:, size],
+                                                        counts)),
+                  f"{name}: the main path's result differs from a "
+                  f"direct launch")
+            check(bad == 0, f"{name}: {bad} of {CRUSH_N} rows differ from "
+                            f"the plain version")
+            h_osds, h_counts = ck.batch_do_rule_arrays(
+                m, rule, xs[pick], size, w, engine="host")
+            sub_counts = None if counts is None else counts[pick]
+            check(_rows(osds[pick], sub_counts) == _rows(h_osds, h_counts),
+                  f"{name}: the sample differs from the numpy host engine")
+            # a perm-choose step or an is_out hash counts as one draw
+            ops = (work.get("straw2_draws", 0)
+                   + work.get("perm_hashes", 0)
+                   + work.get("is_out_hashes", 0))
+            nbytes = CRUSH_N * (8 + 4 * packed.shape[1])
+            ops_ms = ops * draw_s * 1e3
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            rule_out = {"rule": name, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": max(ops_ms, bytes_ms),
+                        "main_path_s": wall, "work": work, "draws": ops}
+            out["rules"].append(rule_out)
+            total["bad"] += bad
+            total["err"] = max(total["err"], err)
+            total["ms"] += ms
+            total["plain_ms"] += plain_ms
+            total["ops"] += ops
+            total["bytes"] += nbytes
+            print(f"phase crush {name}: {CRUSH_N} inputs, main path "
+                  f"{wall:.4f} s ({CRUSH_N / wall:,.0f} mappings/s incl. "
+                  f"copies); kernel {ms:.4f} ms ({CRUSH_N / ms * 1e3:,.0f} "
+                  f"mappings/s), plain {plain_ms:.4f} ms "
+                  f"({CRUSH_N / plain_ms * 1e3:,.0f} mappings/s); work "
+                  f"{work}; bound {max(ops_ms, bytes_ms):.4f} ms "
+                  f"(instructions {ops_ms:.4f}, bytes {bytes_ms:.4f}), "
+                  f"{max(ops_ms, bytes_ms) / ms * 100:.1f}% of bound; "
+                  f"all rows equal the plain version, the sample the host "
+                  f"engine; card {smi}")
+        for (name, m, rule, size), (osds, counts), futs in zip(
+                rules, results, scalar):
+            want = [row for f in futs for row in f.result()]
+            sub_counts = None if counts is None else counts[pick]
+            check(_rows(osds[pick], sub_counts) == want,
+                  f"{name}: the sample differs from the scalar mapper")
+        print(f"phase crush: {SAMPLE}-input spread samples of all "
+              f"{len(rules)} rules equal the scalar mapper "
+              f"({workers} processes)")
+    out.update(map_mismatches=total["bad"], map_max_abs_err=total["err"],
+               map_ms=total["ms"], map_plain_ms=total["plain_ms"])
+    ops_ms = total["ops"] * draw_s * 1e3
+    bytes_ms = total["bytes"] / HBM_BYTES_PER_S * 1e3
+    out["map_bound_ms"] = max(ops_ms, bytes_ms)
+    out["map_bound_by"] = "operations" if ops_ms >= bytes_ms else "bytes"
+
+    # the straw2 winner grid of the 128-host root
+    m = rules[0][1]
+    root = m.bucket(m.rules[rules[0][2]].steps[0].arg1)
+    X, R = 65536, 6
+    wx = np.random.default_rng(SEED).integers(0, 2**32, X, dtype=np.int64)
+    ck.crush_straw2_winners_launches = 0
+    grid = ck.straw2_winners(root.items, root.item_weights, wx,
+                             np.arange(R), device=dev)
+    win_launches = ck.crush_straw2_winners_launches
+    check(win_launches == 1, f"straw2_winners launched {win_launches}")
+
+    def t(a):
+        return torch.tensor(a, dtype=torch.int64, device=dev)
+    items, wts, xd, rd = (t(root.items), t(root.item_weights),
+                          torch.from_numpy(wx).to(dev), t(list(range(R))))
+    ms = median_ms(torch,
+                   lambda: ck.crush_straw2_winners(items, wts, xd, rd), 11)
+    work = {}
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    plain = ck.straw2_winners_plain(items, wts, xd, rd, work)
+    e1.record()
+    torch.cuda.synchronize()
+    plain_ms = e0.elapsed_time(e1)
+    diff = (torch.from_numpy(grid).to(dev) - plain).abs()
+    bad = int((diff != 0).sum())
+    check(bad == 0, f"straw2 winners: {bad} entries differ from plain")
+    ops_ms = work["straw2_draws"] * draw_s * 1e3
+    bytes_ms = (X * 8 + R * 8 + 2 * 8 * len(root.items)
+                + X * R * 8) / HBM_BYTES_PER_S * 1e3
+    out.update(win_launches=win_launches, win_mismatches=bad,
+               win_max_abs_err=int(diff.max()), win_ms=ms,
+               win_plain_ms=plain_ms, win_bound_ms=max(ops_ms, bytes_ms),
+               win_bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+               win_shape=f"items [{len(root.items)}], xs [{X}], rs [{R}] "
+                         f"-> [{X}, {R}] int64")
+    print(f"phase crush straw2_winners [{X}, {R}] over {len(root.items)} "
+          f"items: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{max(ops_ms, bytes_ms):.4f} ms (instructions {ops_ms:.4f}), "
+          f"{max(ops_ms, bytes_ms) / ms * 100:.1f}% of bound; equal to the "
+          f"plain version; card {smi}")
+    return out
+
+
+def build_osdmap():
+    """An OSDMap on the CRUSH phase's 1024 OSDs with a replicated pool
+    (size 3, pg_num 32768) and an EC k=4 m=2 pool (pg_num 16384): about
+    100 PGs per OSD over the pool size, rounded to a power of two.  Then
+    four OSDs out, four at 0x8000 and three down."""
+    from ceph_tpu_torch.crush.builder import (build_hierarchy,
+                                              make_erasure_rule,
+                                              make_replicated_rule)
+    from ceph_tpu_torch.crush.types import CrushMap
+    from ceph_tpu_torch.msg.types import EntityAddr
+    from ceph_tpu_torch.osd.osdmap import Incremental, OSDMap
+    from ceph_tpu_torch.osd.types import (OSD_UP, POOL_TYPE_ERASURE,
+                                          POOL_TYPE_REPLICATED, PGPool)
+    n = CRUSH_HOSTS * CRUSH_PER_HOST
+    crush = CrushMap()
+    crush.max_devices = n
+    build_hierarchy(crush, n, CRUSH_PER_HOST)
+    rep = make_replicated_rule(crush, "replicated_rule")
+    ec = make_erasure_rule(crush, "ec_rule", size=6)
+    m = OSDMap()
+    m.fsid = "chip-smoke"
+    m.crush = crush
+    m.set_max_osd(n)
+    inc = Incremental(1)
+    for o in range(n):
+        inc.new_up[o] = EntityAddr(f"10.0.{o // 256}.{o % 256}", 6800, o + 1)
+        inc.new_weight[o] = 0x10000
+    inc.new_pools[1] = PGPool(POOL_TYPE_REPLICATED, size=3,
+                              crush_ruleset=rep, pg_num=32768)
+    inc.new_pool_names[1] = "rbd"
+    inc.new_pools[2] = PGPool(POOL_TYPE_ERASURE, size=6, min_size=5,
+                              crush_ruleset=ec, pg_num=16384,
+                              ec_profile="k4m2")
+    inc.new_pool_names[2] = "ec42"
+    m.apply_incremental(inc)
+    inc = Incremental(2)
+    for o in (3, 77, 500, 901):
+        inc.new_weight[o] = 0
+    for o in (10, 300, 640, 1000):
+        inc.new_weight[o] = 0x8000
+    for o in (42, 613, 777):
+        inc.new_state[o] = OSD_UP
+    m.apply_incremental(inc)
+    return m
+
+
+def osdmap_path(torch, np, dev, smi):
+    from ceph_tpu_torch.crush.constants import CRUSH_ITEM_NONE
+    from ceph_tpu_torch.ops import crush_kernel as ck
+    from ceph_tpu_torch.osd.osdmap import OSDMap
+    from ceph_tpu_torch.tools import osdmaptool
+    m = build_osdmap()
+    for pid in m.pools:
+        m.warmup_placement(pid, dev)
+    ck.crush_map_launches = 0
+    got, walls = {}, {}
+    for pid in sorted(m.pools):
+        t0 = time.perf_counter()
+        got[pid] = m.map_pgs_batch(pid, "device", dev)
+        walls[pid] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "osdmap.bin")
+        with open(path, "wb") as f:
+            f.write(m.to_bytes())
+        reports = {}
+        # the tool's default engine is the device descent
+        for engine, extra in (("device", []), ("host", ["--engine",
+                                                        "host"])):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = osdmaptool.main([path, "--test-map-pgs", "--json",
+                                      "--device", str(dev), *extra])
+            check(rc == 0, f"osdmaptool --engine {engine} exit {rc}")
+            reports[engine] = json.loads(buf.getvalue())
+            if engine == "device":
+                launches = ck.crush_map_launches
+        check(OSDMap.from_bytes(m.to_bytes()).to_bytes() == m.to_bytes(),
+              "the map does not re-encode to the same bytes")
+    check(launches == 2 * len(m.pools),
+          f"the OSDMap path launched crush_map {launches} times")
+    for pid in sorted(m.pools):
+        want = m.map_pgs_batch(pid, "host")
+        check(got[pid] == want, f"pool {pid}: device placements differ "
+                                f"from the host engine's")
+    holes = sum(CRUSH_ITEM_NONE in up for _, up, *_ in got[2])
+    outs = {3, 77, 500, 901}
+    check(not any(o in outs for pid in got for _, up, *_ in got[pid]
+                  for o in up), "an out OSD holds a placement")
+    check(holes > 0, "no EC up set has a hole for a down OSD")
+    for engine, rep in reports.items():
+        print(f"phase osdmap osdmaptool --test-map-pgs --engine {engine}: "
+              f"{rep['total_pgs']} pgs in {rep['seconds']} s "
+              f"({rep['mappings_per_sec']} pg/s), pgs per osd "
+              f"{rep['pg_per_osd']}; card {smi}")
+    strip = [{k: v for k, v in r.items()
+              if k not in ("seconds", "mappings_per_sec")}
+             for r in reports.values()]
+    check(strip[0] == strip[1], "osdmaptool reports differ between device "
+                                "and host")
+    print(f"phase osdmap: both pools equal on device and host; {holes} EC "
+          f"up sets with holes; crush_map launches {launches}")
+
+    # where map_pgs_batch's time goes: pps, the CRUSH call, the per-pg
+    # finish; and the descent kernel alone at the pool's size (these
+    # launches come after the count was read)
+    osd_w = torch.tensor(m.osd_weight, dtype=torch.int64, device=dev)
+    for pid in sorted(m.pools):
+        pool = m.pools[pid]
+        pgs = m.pg_ids(pid)
+        t0 = time.perf_counter()
+        pps = [pool.raw_pg_to_pps(pg) for pg in pgs]
+        t1 = time.perf_counter()
+        ruleno = m.crush.find_rule(pool.crush_ruleset, pool.type, pool.size)
+        raws = ck.batch_do_rule(m.crush, ruleno, pps, pool.size,
+                                m.osd_weight, "device", dev)
+        t2 = time.perf_counter()
+        for pg, raw in zip(pgs, raws):
+            m._finish_mapping(pool, pg, raw)
+        t3 = time.perf_counter()
+        seg = ck.compile_rule(m.crush, ruleno).segments[0]
+        numrep, out_size = ck._seg_numrep(seg, pool.size)
+        eng = ck._device_engine(seg, m.osd_weight, dev)
+        wts = eng.weights(seg)
+        xs_d = torch.tensor(pps, dtype=torch.int64, device=dev)
+        k_ms = median_ms(torch, lambda: ck.crush_map(
+            eng, xs_d, numrep, out_size, wts, osd_w), 21)
+        print(f"phase osdmap map_pgs_batch pool {pid} "
+              f"({m.pool_names[pid]}, {pool.pg_num} pgs): {walls[pid]:.4f} "
+              f"s; again in steps: pps {t1 - t0:.4f} s, batch_do_rule "
+              f"{t2 - t1:.4f} s, per-pg finish {t3 - t2:.4f} s; crush_map "
+              f"kernel alone [{len(pps)}] -> [{len(pps)}, "
+              f"{numrep + (1 if seg.firstn else 0)}] {k_ms:.4f} ms; "
+              f"card {smi}")
+    return launches
 
 
 def main() -> int:
@@ -82,12 +580,22 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    built = build("gf_apply")
-    print(f"phase build: gf_apply nvcc {built.seconds:.3f} s "
-          f"(load {time.perf_counter() - t0:.3f} s)")
-    for line in built.ptxas.splitlines():
-        if "registers" in line or "Compiling entry" in line:
-            print(f"  ptxas: {line.strip()}")
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        builds = list(pool.map(build, ("gf_apply", "crush_map")))
+    print(f"phase build: both sources in {time.perf_counter() - t0:.3f} s")
+    for built in builds:
+        print(f"  {built.name}: nvcc {built.seconds:.3f} s")
+        for line in built.ptxas.splitlines():
+            if ("registers" in line or "Compiling entry" in line
+                    or "spill" in line):
+                print(f"  ptxas: {line.strip()}")
+    from crush_probe import disassemble, draw_cost
+    cost = draw_cost(disassemble(builds[1].path))
+    draw_s = cost["sm_clocks_per_draw"] / SM_CLOCKS_PER_S
+    print(f"phase build: one straw2 draw as compiled issues "
+          f"{cost['per_draw']} instructions by pipe (mean of the item "
+          f"loop's {len(cost['draw_paths'])} draw paths, cuobjdump -sass): "
+          f"{cost['sm_clocks_per_draw']:.4f} SM clocks on the busiest pipe")
 
     # -- phase 2: the kernel against its plain version -----------------
     gen = gf256.rs_vandermonde_matrix(K, M)
@@ -123,6 +631,8 @@ def main() -> int:
                            f"{mismatches} bytes")
     print(f"phase kernel_vs_plain: {len(cases)} cases bit-exact "
           f"({time.perf_counter() - t0:.3f} s)")
+    k2_mismatches = check_variants(torch, np, gf256, kernel, dev, rng,
+                                   cases)
 
     # -- phase 3: the main path ----------------------------------------
     codec = factory("rs", {"k": str(K), "m": str(M)}, device=dev)
@@ -236,24 +746,9 @@ def main() -> int:
     data = torch.from_numpy(
         rng.integers(0, 256, (K, L), dtype=np.uint8)).to(dev)
     flush = torch.empty(512 << 20, dtype=torch.uint8, device=dev)
-
-    def median_ms(fn, reps):
-        fn()
-        fn()
-        times = []
-        for _ in range(reps):
-            flush.zero_()        # evicts L2; the launch queues behind it
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            fn()
-            e1.record()
-            torch.cuda.synchronize()
-            times.append(e0.elapsed_time(e1))
-        return statistics.median(times)
-
-    ms = median_ms(lambda: kernel.gf_apply(ops, data), 25)
-    plain_ms = median_ms(lambda: kernel.gf_apply_plain(ops.bitmat, data), 21)
+    ms = median_ms(torch, lambda: kernel.gf_apply(ops, data), 25, flush)
+    plain_ms = median_ms(
+        torch, lambda: kernel.gf_apply_plain(ops.bitmat, data), 21, flush)
     moved = (K + M) * L
     bytes_ms = moved / HBM_BYTES_PER_S * 1e3
     ops_ms = 2 * (8 * M) * (8 * K) * L / INT8_OPS_PER_S * 1e3
@@ -262,6 +757,40 @@ def main() -> int:
           f"({moved / ms / 1e6:.1f} GB/s), plain {plain_ms:.4f} ms, "
           f"bound {bound_ms:.4f} ms (bytes {bytes_ms:.4f}, int8-MMA ops "
           f"{ops_ms:.4f}), {bound_ms / ms * 100:.1f}% of bound; card {smi}")
+    for cfg in kernel.TUNE_SPACE:
+        v_ms = median_ms(
+            torch, lambda: kernel.gf_apply(ops, data, config=cfg), 15, flush)
+        c_ms = median_ms(
+            torch, lambda: kernel.gf_apply_checksum(ops, data, cfg), 15,
+            flush)
+        print(f"  variant {cfg} (threads, lanes, rows): gf_apply "
+              f"{v_ms:.4f} ms ({moved / v_ms / 1e6:.1f} GB/s), "
+              f"gf_apply_checksum {c_ms:.4f} ms; card {smi}")
+
+    # -- phase 6: the variant tuner's path -----------------------------
+    k2_launches = tuner_path(torch, np, gf256, kernel, dev, smi)
+
+    # -- phase 7: CRUSH placement, 1M inputs per rule ------------------
+    crush = crush_path(torch, np, dev, smi, draw_s)
+
+    # -- phase 8: the OSDMap and osdmaptool ----------------------------
+    osdmap_launches = osdmap_path(torch, np, dev, smi)
+
+    # -- phase 9: the probe's timing, the kernels line ------------------
+    cfg0 = kernel.TUNE_SPACE[0]
+    k2_ms = median_ms(
+        torch, lambda: kernel.gf_apply_checksum(ops, data, cfg0), 25, flush)
+    k2_plain_ms = median_ms(
+        torch, lambda: kernel.gf_apply_checksum_plain(ops.bitmat, data), 11,
+        flush)
+    k2_bytes_ms = K * L / HBM_BYTES_PER_S * 1e3
+    k2_ops_ms = 2 * (8 * M) * (8 * K) * L / INT8_OPS_PER_S * 1e3
+    k2_bound_ms = max(k2_bytes_ms, k2_ops_ms)
+    print(f"phase timing: gf_apply_checksum {cfg0} [8, {L}] -> int32 "
+          f"median {k2_ms:.4f} ms, plain {k2_plain_ms:.4f} ms, bound "
+          f"{k2_bound_ms:.4f} ms (bytes {k2_bytes_ms:.4f}, int8-MMA ops "
+          f"{k2_ops_ms:.4f}), {k2_bound_ms / k2_ms * 100:.1f}% of bound; "
+          f"card {smi}")
 
     print(json.dumps({"kernels": [{
         "name": "gf_apply",
@@ -278,6 +807,53 @@ def main() -> int:
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None,
         "shape": f"[{K}, {L}] -> [{M}, {L}] uint8",
+    }, {
+        "name": "gf_apply_checksum",
+        "route": "cuda",
+        "source": "ceph_tpu_torch/csrc/gf_apply.cu",
+        "replaces": "ceph_tpu/ec/kernel.py:237",
+        "replaces_function": "_pallas_probe_sum",
+        "launches": k2_launches,
+        "mismatches": k2_mismatches,
+        "max_abs_err": 0 if k2_mismatches == 0 else None,
+        "ms": k2_ms,
+        "plain_ms": k2_plain_ms,
+        "bound_ms": k2_bound_ms,
+        "bound_by": "bytes" if k2_bytes_ms >= k2_ops_ms else "operations",
+        "library_ms": None,
+        "shape": f"[{K}, {L}] uint8 -> int32 scalar, variant {cfg0}",
+    }, {
+        "name": "crush_map",
+        "route": "cuda",
+        "source": "ceph_tpu_torch/csrc/crush_map.cu",
+        "replaces": "ceph_tpu/ops/crush_kernel.py:1019",
+        "replaces_function": "JaxEngine._build (fast_map/full_map)",
+        "launches": crush["map_launches"] + osdmap_launches,
+        "mismatches": crush["map_mismatches"],
+        "max_abs_err": crush["map_max_abs_err"],
+        "ms": crush["map_ms"],
+        "plain_ms": crush["map_plain_ms"],
+        "bound_ms": crush["map_bound_ms"],
+        "bound_by": crush["map_bound_by"],
+        "library_ms": None,
+        "shape": f"3 rules x {CRUSH_N} inputs: xs [{CRUSH_N}] int64 -> "
+                 f"osds [{CRUSH_N}, 3 + count | 6 | 3 + count] int32",
+        "rules": crush["rules"],
+    }, {
+        "name": "crush_straw2_winners",
+        "route": "cuda",
+        "source": "ceph_tpu_torch/csrc/crush_map.cu",
+        "replaces": "ceph_tpu/ops/crush_kernel.py:1520",
+        "replaces_function": "_get_winners_fn",
+        "launches": crush["win_launches"],
+        "mismatches": crush["win_mismatches"],
+        "max_abs_err": crush["win_max_abs_err"],
+        "ms": crush["win_ms"],
+        "plain_ms": crush["win_plain_ms"],
+        "bound_ms": crush["win_bound_ms"],
+        "bound_by": crush["win_bound_by"],
+        "library_ms": None,
+        "shape": crush["win_shape"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

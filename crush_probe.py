@@ -1,0 +1,267 @@
+#!/usr/bin/env python3
+"""Measurements behind the CRUSH rows of PERF.md, one subcommand each.
+
+    python3 crush_probe.py host-engines [--sizes 16,64,256,1024,4096]
+    python3 crush_probe.py sass-ops
+
+``host-engines`` times the two CPU descents of the port on the chip smoke
+test's maps (1024 OSDs, 128 hosts x 8; replicated firstn x3, EC indep x6,
+and firstn x3 behind 16 racks): the numpy host engine
+(``batch_do_rule_arrays(engine="host")``) and the kernel's plain torch
+version on the CPU (``engine="device", device="cpu"``), at batch sizes an
+Objecter cork flush or a small pool's priming hands them.  Each time is
+the median of repeated calls through the entry point; the two results
+must be equal.  It runs on any host and times the host's CPU, not a card.
+
+``sass-ops`` builds ``csrc/crush_map.cu`` (nvcc, sm_90a), disassembles
+the library with ``cuobjdump -sass`` and counts the instructions that
+one straw2 draw issues: the loop body of ``crush_straw2_winners`` (one
+draw per item) along the path a drawn item with a nonzero weight takes,
+plus the 64-bit division routine it calls.  It splits the count by the
+pipe that executes each instruction on Hopper, and prints it as JSON.
+It needs the CUDA toolkit, not a card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import shutil
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+
+def _median_s(fn, min_total_s=0.2, min_reps=5):
+    fn()
+    times = []
+    while len(times) < min_reps or sum(times) < min_total_s:
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def host_engines(sizes):
+    import torch
+    from chip_smoke import crush_maps
+    from ceph_tpu_torch.ops import crush_kernel as ck
+    rules, w = crush_maps()
+    rng = np.random.default_rng(20261017)
+    print(f"cpu: {os.cpu_count()} cores, torch {torch.__version__} with "
+          f"{torch.get_num_threads()} threads")
+    rows = []
+    for name, m, rule, size in rules:
+        for n in sizes:
+            xs = rng.integers(0, 2**32, n, dtype=np.int64)
+            host = ck.batch_do_rule_arrays(m, rule, xs, size, w, "host")
+            plain = ck.batch_do_rule_arrays(m, rule, xs, size, w, "device",
+                                            "cpu")
+            if not (np.array_equal(host[0], plain[0])
+                    and (host[1] is None
+                         or np.array_equal(host[1], plain[1]))):
+                raise SystemExit(f"{name} at {n}: the engines differ")
+            h_s = _median_s(lambda: ck.batch_do_rule_arrays(
+                m, rule, xs, size, w, "host"))
+            p_s = _median_s(lambda: ck.batch_do_rule_arrays(
+                m, rule, xs, size, w, "device", "cpu"))
+            row = {"rule": name, "inputs": n, "host_ms": h_s * 1e3,
+                   "plain_torch_ms": p_s * 1e3, "ratio": p_s / h_s}
+            rows.append(row)
+            print(f"{name:20s} {n:6d} inputs: numpy host {h_s * 1e3:9.3f} "
+                  f"ms, plain torch {p_s * 1e3:9.3f} ms "
+                  f"({p_s / h_s:.2f}x)")
+    print(json.dumps({"host_engines": rows}))
+
+
+# --------------------------------------------------------------- SASS ops
+# Each instruction goes to the pipe that executes it on Hopper.  Results
+# per clock and SM (CUDA C++ Programming Guide, arithmetic instruction
+# throughput, compute capability 9.0): 64 for 32-bit integer add,
+# subtract, shift, bitwise, compare and select (the ALU pipe); 64 for
+# integer multiply-add, IMAD, which runs on the FMA pipe beside the ALU;
+# 16 for type conversions, MUFU, leading-zero and population counts.  The
+# 32 load/store units take one thread's access per clock each.  Four
+# schedulers issue one warp instruction per clock each: 128.  Uniform
+# datapath (U*) and control instructions take issue slots only.
+SM_RATES = {"issue": 128, "alu": 64, "fma": 64, "slow": 16, "mem": 32}
+PIPES = (
+    ("alu", re.compile(r"^(IADD3|LOP3|SHF|ISETP|SEL|LEA|IMNMX|VIMNMX|PRMT|"
+                       r"BMSK|SGXT|PLOP3|P2R|R2P|IABS|FSEL|FSETP|FMNMX|"
+                       r"VIADD|MOV|CS2R)\b")),
+    ("fma", re.compile(r"^(IMAD|IDP|FFMA|FMUL|FADD|HFMA2|HMUL2|HADD2)\b")),
+    ("slow", re.compile(r"^(MUFU|I2F|F2I|F2F|I2I|FRND|FLO|POPC|BREV)\b")),
+    ("mem", re.compile(r"^(LD|LDS|LDG|LDC|LDL|ST|STS|STG|STL|ATOM|ATOMS|"
+                       r"ATOMG|RED)\b")),
+    ("uniform", re.compile(r"^(U[A-Z0-9]+|S2UR)\b")),
+)
+_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
+_HEX = re.compile(r"\b0x([0-9a-f]+)\b")
+
+
+def pipe_of(op: str) -> str:
+    for name, pat in PIPES:
+        if pat.match(op):
+            return name
+    return "control"        # BRA, BSSY, BSYNC, CALL, RET, S2R, BAR, ...
+
+
+def functions(sass: str):
+    """{function: {address: (instruction without predicate, with it)}}
+    from the text ``cuobjdump -sass`` prints."""
+    funcs, cur = {}, None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), {})
+            continue
+        m = _INSN.search(line)
+        if m and cur is not None:
+            raw = m.group(2).strip()
+            text = re.sub(r"^@!?U?P[T0-9]+\s+", "", raw)
+            cur[int(m.group(1), 16)] = (text, raw)
+    return funcs
+
+
+def _target(text: str) -> int:
+    return int(_HEX.search(text.split(None, 1)[1]).group(1), 16)
+
+
+def _subroutine(insns, addr):
+    """The instructions of a called routine, up to its RET (straight-line
+    code only)."""
+    out = []
+    while True:
+        text, _ = insns[addr]
+        op = text.split()[0]
+        if op == "BRA":
+            raise ValueError(f"branch at {addr:#x} inside a called routine")
+        out.append(text)
+        if op == "RET" or op.startswith("RET."):
+            return out
+        addr += 16
+
+
+def loop_paths(insns, start: int, stop: int):
+    """Every path through one iteration of the loop whose body runs from
+    ``start`` to the backward branch at ``stop``: each a list of the
+    instructions it issues, a called routine's included."""
+    paths = []
+
+    def walk(addr, acc):
+        while True:
+            text, raw = insns[addr]
+            op = text.split()[0].split(".")[0]
+            acc = acc + [text]
+            if addr == stop:
+                paths.append(acc)
+                return
+            if op == "BRA":
+                target = _target(text)
+                if not addr < target <= stop:
+                    raise ValueError(f"branch at {addr:#x} leaves the loop")
+                if raw.startswith("@"):
+                    walk(addr + 16, acc)
+                addr = target
+                continue
+            if op == "CALL":
+                acc = acc + _subroutine(insns, _target(text))
+            elif op in ("EXIT", "RET"):
+                raise ValueError(f"{op} at {addr:#x} inside the loop")
+            addr += 16
+
+    walk(start, [])
+    return paths
+
+
+def count(path):
+    """Instructions of one path by pipe, NOPs left out."""
+    by = dict.fromkeys(("alu", "fma", "slow", "mem", "uniform",
+                        "control"), 0)
+    for text in path:
+        op = text.split()[0]
+        if op != "NOP":
+            by[pipe_of(op.split(".")[0])] += 1
+    by["issue"] = sum(by.values())
+    return by
+
+
+def sm_clocks(by) -> float:
+    """The least SM clocks one thread's share of these instructions
+    takes: the busiest pipe, or issue."""
+    return max(by[p] / rate for p, rate in SM_RATES.items())
+
+
+def draw_cost(sass: str):
+    """Instructions per drawn item (nonzero weight) of the straw2 choice
+    as compiled, from ``crush_straw2_winners``' item loop.  The loop's
+    paths that call the 64-bit division routine are the draws (a zero
+    weight skips the draw; the quotient of a negative 49-bit ln and a
+    weight never fits the 32-bit shortcut).  They differ only in
+    crush_ln's normalisation block, which runs when the 16-bit hash + 1
+    is below 0x8000, half of all hash values: the cost is their mean."""
+    funcs = functions(sass)
+    name = next(f for f in funcs if "crush_straw2_winners_kernel" in f)
+    insns = funcs[name]
+    # the item loop: the backward branch whose body calls the division
+    # (the other loop stages the crush_ln tables in shared memory)
+    back = [(a, _target(t)) for a, (t, _) in insns.items()
+            if t.split()[0] == "BRA" and _target(t) < a
+            and any(insns[b][0].startswith("CALL")
+                    for b in range(_target(t), a, 16))]
+    if len(back) != 1:
+        raise ValueError(f"{len(back)} item loops in {name}")
+    stop, start = back[0]
+    paths = loop_paths(insns, start, stop)
+    draws = [count(p) for p in paths
+             if any(t.startswith("CALL") for t in p)]
+    if not draws:
+        raise ValueError("no path of the item loop calls the division")
+    mean = {k: statistics.mean(d[k] for d in draws) for k in draws[0]}
+    return {"function": name, "loop": [hex(start), hex(stop)],
+            "paths": [count(p) for p in paths], "draw_paths": draws,
+            "per_draw": mean, "sm_clocks_per_draw": sm_clocks(mean),
+            "sm_rates": SM_RATES}
+
+
+def disassemble(lib_path: str) -> str:
+    from ceph_tpu_torch.common.cuda_build import nvcc_path
+    tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    if not os.path.exists(tool):
+        tool = shutil.which("cuobjdump") or tool
+    return subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, check=True).stdout
+
+
+def sass_ops():
+    from ceph_tpu_torch.common.cuda_build import build
+    built = build("crush_map")
+    cost = draw_cost(disassemble(built.path))
+    for p in cost["paths"]:
+        print(f"item-loop path: {p}")
+    print(f"per draw (mean of the {len(cost['draw_paths'])} draw paths): "
+          f"{cost['per_draw']}; {cost['sm_clocks_per_draw']:.4f} SM clocks")
+    print(json.dumps(cost))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="crush_probe")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+    h = sub.add_parser("host-engines")
+    h.add_argument("--sizes", default="16,64,256,1024,4096")
+    sub.add_parser("sass-ops")
+    args = ap.parse_args(argv)
+    if args.cmd == "host-engines":
+        host_engines([int(s) for s in args.sizes.split(",")])
+    else:
+        sass_ops()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

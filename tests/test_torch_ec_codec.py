@@ -120,9 +120,19 @@ def test_plugin_names_and_errors():
 
 
 def test_create_rule_waits_for_the_crush_port():
-    codec = factory("rs", {"k": "4", "m": "2"}, device="cpu")
-    with pytest.raises(NotImplementedError, match="CRUSH"):
-        codec.create_rule(None, "ecrule")
+    """The CRUSH builder is ported now: create_rule adds the same indep
+    rule to a map as the reference codec does, byte for byte."""
+    from ceph_tpu.crush.builder import build_hierarchy as ref_build
+    from ceph_tpu.crush.types import CrushMap as RefCrushMap
+    from ceph_tpu_torch.crush.builder import build_hierarchy
+    from ceph_tpu_torch.crush.types import CrushMap
+    ref, port = _pair("rs", {"k": "4", "m": "2"})
+    ref_map, port_map = RefCrushMap(), CrushMap()
+    ref_build(ref_map, 12, 2)
+    build_hierarchy(port_map, 12, 2)
+    assert port.create_rule(port_map, "ecrule") == \
+        ref.create_rule(ref_map, "ecrule")
+    assert port_map.to_bytes() == ref_map.to_bytes()
 
 
 def test_minimum_to_decode_matches_reference():

@@ -147,3 +147,198 @@ def test_queue_device_failure_reaches_callers_on_card(cuda, monkeypatch,
         assert d["host_requests"] == 0 and d["device_requests"] == 0
         await q.stop()
     asyncio.run(run())
+
+
+# -- the variant tuner's kernels --------------------------------------------
+
+@pytest.mark.parametrize("cfg", kernel.TUNE_SPACE,
+                         ids=lambda c: "t%d_l%d_r%d" % c)
+@pytest.mark.parametrize("k,r,L", [(8, 4, 1 << 20), (8, 4, 333),
+                                   (6, 3, 4097), (200, 50, 999)])
+def test_every_variant_matches_plain_on_card(cuda, cfg, k, r, L):
+    rng = np.random.default_rng(k + r + L)
+    mat = rng.integers(0, 256, (r, k), dtype=np.uint8)
+    ops = kernel.from_reference_matrix(mat, cuda)
+    data = torch.from_numpy(
+        rng.integers(0, 256, (k, L), dtype=np.uint8)).to(cuda)
+    got = kernel.gf_apply(ops, data, config=cfg)
+    want = kernel.gf_apply_plain(ops.bitmat, data)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    total = kernel.gf_apply_checksum(ops, data, config=cfg)
+    assert int(total) == int(kernel.gf_apply_checksum_plain(ops.bitmat,
+                                                            data))
+
+
+@pytest.mark.parametrize("cfg", kernel.TUNE_SPACE,
+                         ids=lambda c: "t%d_l%d_r%d" % c)
+def test_checksum_wraps_on_card(cuda, cfg):
+    # unit rows copy data bytes >= 0xF0 through: 4 * 2.2 Mi bytes sum
+    # past 2^31, so the int32 result wraps negative
+    rng = np.random.default_rng(11)
+    mat = np.eye(4, dtype=np.uint8)
+    ops = kernel.from_reference_matrix(mat, cuda)
+    data = torch.from_numpy(
+        rng.integers(0xF0, 0x100, (4, 2_200_003), dtype=np.uint8)).to(cuda)
+    before = kernel.gf_apply_checksum_launches
+    got = int(kernel.gf_apply_checksum(ops, data, config=cfg))
+    assert kernel.gf_apply_checksum_launches == before + 1
+    exact = int(data.to(torch.int64).sum())
+    assert exact > 2**31
+    assert got == (exact + 2**31) % 2**32 - 2**31 < 0
+    assert got == int(kernel.gf_apply_checksum_plain(ops.bitmat, data))
+
+
+def test_tuner_installs_on_card(cuda, monkeypatch):
+    monkeypatch.setattr(kernel, "_EC_SHAPE_CFG", {})
+    for name in ("_EC_THREADS", "_EC_LANES", "_EC_ROWS"):
+        monkeypatch.setattr(kernel, name, getattr(kernel, name))
+    gen = gf256.rs_vandermonde_matrix(8, 4)
+    win = kernel.autotune(gen[8:], length=1 << 22, trials=2,
+                          device=cuda)
+    assert (win["threads"], win["lanes"], win["rows"]) in kernel.TUNE_SPACE
+    assert kernel._resolve_fused_config((4, 8)) == (
+        win["threads"], win["lanes"], win["rows"])
+
+
+def test_tuner_does_not_swallow_a_refused_launch(cuda, monkeypatch):
+    class Refusing:
+        @staticmethod
+        def gf_apply_checksum(*args):
+            return 1                        # cudaErrorInvalidValue
+
+        @staticmethod
+        def gf_apply_error_string(code):
+            return b"invalid argument"
+    monkeypatch.setattr(kernel, "_library", lambda: Refusing)
+    monkeypatch.setattr(kernel, "_EC_SHAPE_CFG", {})
+    gen = gf256.rs_vandermonde_matrix(4, 2)
+    with pytest.raises(RuntimeError, match="gf_apply_checksum launch"):
+        kernel.autotune(gen[4:], length=1 << 16, trials=1, device=cuda)
+    assert kernel._EC_SHAPE_CFG == {}
+
+
+# -- the CRUSH kernels ------------------------------------------------------
+
+def _crush_case(name):
+    from ceph_tpu_torch.crush.builder import (build_hierarchy, make_bucket,
+                                              make_erasure_rule,
+                                              make_replicated_rule)
+    from ceph_tpu_torch.crush.constants import BUCKET_UNIFORM
+    from ceph_tpu_torch.crush.types import CrushMap
+    m = CrushMap()
+    if name == "uniform":
+        m.max_devices = 24
+        hosts = [make_bucket(m, BUCKET_UNIFORM, 1,
+                             list(range(4 * h, 4 * h + 4)), [0x10000] * 4)
+                 for h in range(6)]
+        for h, b in enumerate(hosts):
+            m.name_map[b.id] = f"host{h}"
+        root = make_bucket(m, BUCKET_UNIFORM, 10, [b.id for b in hosts],
+                           [b.weight] * 6)
+        m.name_map[root.id] = "default"
+        n = 24
+    elif name == "short":                  # 3 hosts for 6 indep slots
+        n = 6
+        m.max_devices = n
+        build_hierarchy(m, n, 2)
+    elif name == "3level":
+        n = 128
+        m.max_devices = n
+        build_hierarchy(m, n, 4, hosts_per_rack=4)
+    else:
+        n = 96
+        m.max_devices = n
+        build_hierarchy(m, n, 4)
+    rep = make_replicated_rule(m, "rep")
+    ec = make_erasure_rule(m, "ec", size=6)
+    w = [0 if i % 11 == 0 else (0x8000 if i % 7 == 0 else 0x10000)
+         for i in range(n)] if n > 6 else [0x10000] * (n - 1) + [0x8000]
+    return m, rep, ec, w
+
+
+@pytest.mark.parametrize("case", ["2level", "3level", "uniform", "short"])
+def test_crush_map_matches_plain_on_card(cuda, case):
+    from ceph_tpu_torch.ops import crush_kernel as ck
+    m, rep, ec, w = _crush_case(case)
+    xs = np.random.default_rng(5).integers(0, 2**32, 20000, dtype=np.int64)
+    for rule, size in ((rep, 3), (ec, 6)):
+        before = ck.crush_map_launches
+        osds, counts = ck.batch_do_rule_arrays(m, rule, xs, size, w,
+                                               engine="device", device=cuda)
+        assert ck.crush_map_launches == before + 1
+        p_osds, p_counts = ck.batch_do_rule_arrays(m, rule, xs, size, w,
+                                                   engine="device",
+                                                   device="cpu")
+        h_osds, h_counts = ck.batch_do_rule_arrays(m, rule, xs, size, w,
+                                                   engine="host")
+        assert np.array_equal(osds, p_osds) and np.array_equal(osds, h_osds)
+        if counts is None:
+            assert p_counts is None and h_counts is None
+        else:
+            assert np.array_equal(counts, p_counts)
+            assert np.array_equal(counts, h_counts)
+
+
+def test_crush_straw2_winners_matches_plain_on_card(cuda):
+    from ceph_tpu_torch.ops import crush_kernel as ck
+    rng = np.random.default_rng(9)
+    items = torch.arange(-2, -66, -1, dtype=torch.int64)
+    weights = torch.from_numpy(
+        rng.choice([0, 0x8000, 0x10000, 0x30000], 64).astype(np.int64))
+    xs = torch.from_numpy(rng.integers(0, 2**32, 3000, dtype=np.int64))
+    rs = torch.arange(7, dtype=torch.int64)
+    before = ck.crush_straw2_winners_launches
+    got = ck.crush_straw2_winners(items.to(cuda), weights.to(cuda),
+                                  xs.to(cuda), rs.to(cuda))
+    assert ck.crush_straw2_winners_launches == before + 1
+    want = ck.straw2_winners_plain(items, weights, xs, rs)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_crush_refused_launch_raises(cuda, monkeypatch):
+    from ceph_tpu_torch.ops import crush_kernel as ck
+
+    class Refusing:
+        @staticmethod
+        def crush_map(*args):
+            return 1
+
+        @staticmethod
+        def crush_error_string(code):
+            return b"invalid argument"
+    monkeypatch.setattr(ck, "_library", lambda: Refusing)
+    m, rep, _, w = _crush_case("2level")
+    with pytest.raises(RuntimeError, match="crush_map launch failed"):
+        ck.batch_do_rule_arrays(m, rep, np.arange(100), 3, w,
+                                engine="device", device=cuda)
+
+
+def test_osdmap_entries_default_to_the_crush_kernel(cuda, tmp_path):
+    import contextlib
+    import io
+    from ceph_tpu_torch.msg.types import EntityAddr
+    from ceph_tpu_torch.ops import crush_kernel as ck
+    from ceph_tpu_torch.osd.osdmap import Incremental, OSDMap
+    from ceph_tpu_torch.osd.types import POOL_TYPE_REPLICATED, PGPool
+    from ceph_tpu_torch.tools import osdmaptool
+    m, rep, _, w = _crush_case("2level")
+    om = OSDMap()
+    om.crush = m
+    om.set_max_osd(len(w))
+    inc = Incremental(1)
+    for o, wt in enumerate(w):
+        inc.new_up[o] = EntityAddr("127.0.0.1", 6800 + o, o + 1)
+        inc.new_weight[o] = wt
+    inc.new_pools[1] = PGPool(POOL_TYPE_REPLICATED, size=3,
+                              crush_ruleset=rep, pg_num=4096)
+    om.apply_incremental(inc)
+    path = tmp_path / "osdmap.bin"
+    path.write_bytes(om.to_bytes())
+    before = ck.crush_map_launches
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert osdmaptool.main([str(path), "--test-map-pgs", "--json"]) == 0
+    assert ck.crush_map_launches == before + 1
+    got = om.map_pgs_batch(1)
+    assert ck.crush_map_launches == before + 2
+    assert got == om.map_pgs_batch(1, "host")

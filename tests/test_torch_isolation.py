@@ -1,6 +1,7 @@
 """The port imports neither JAX nor the JAX package.
 
-Every module of ceph_tpu_torch/ and chip_smoke.py is walked with ``ast``:
+Every module of ceph_tpu_torch/, chip_smoke.py and crush_probe.py is
+walked with ``ast``:
 no ``import jax``/``jaxlib``/``ceph_tpu`` (``ceph_tpu_torch`` is the port
 itself).  Then the package is imported in a fresh interpreter, which
 must end with no ``jax`` in ``sys.modules``.
@@ -18,7 +19,8 @@ FORBIDDEN = ("jax", "jaxlib", "ceph_tpu")
 
 
 def _sources():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out = [os.path.join(ROOT, "chip_smoke.py"),
+           os.path.join(ROOT, "crush_probe.py")]
     for d, _, files in os.walk(os.path.join(ROOT, "ceph_tpu_torch")):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -37,9 +39,15 @@ def _imported_roots(path):
 
 def test_sources_exist():
     srcs = _sources()
-    assert os.path.join(ROOT, "chip_smoke.py") in srcs and os.path.exists(
-        os.path.join(ROOT, "chip_smoke.py"))
+    for script in ("chip_smoke.py", "crush_probe.py"):
+        assert os.path.join(ROOT, script) in srcs and os.path.exists(
+            os.path.join(ROOT, script))
     assert len(srcs) > 15
+    # every subpackage the port has is in the walk
+    for mod in ("ec/kernel.py", "crush/mapper.py", "ops/crush_kernel.py",
+                "osd/osdmap.py", "msg/types.py", "tools/osdmaptool.py",
+                "common/encoding.py"):
+        assert os.path.join(ROOT, "ceph_tpu_torch", mod) in srcs, mod
 
 
 @pytest.mark.parametrize("path", _sources(),
