@@ -6,8 +6,8 @@ The port's copy of ``ceph_tpu.ec``.  Parity map:
   rs.py         <- jerasure + isa plugins (matrix techniques)
   bitmatrix.py  <- jerasure liberation / blaum_roth techniques
   gf256.py      <- gf-complete/jerasure matrix prep, isa gf_gen_* matrices
-  kernel.py     <- isa-l x86 GF(2^8) kernels -> split-nibble CUDA kernel
-                   (csrc/gf_apply.cu)
+  kernel.py     <- isa-l x86 GF(2^8) kernels -> byte-permute (prmt) CUDA
+                   kernel (csrc/gf_apply.cu)
 
 The lrc and shec plugins are not ported yet.
 """

@@ -10,7 +10,8 @@ A multiply by a *constant* c in GF(2^8) is a linear map over GF(2) on the
 bits(c * x^j).  An (m x k) GF(2^8) code matrix therefore expands to an
 (8m x 8k) GF(2) bit-matrix (``expand_to_bitmatrix``), which is the operand
 of the plain PyTorch matrix apply in ceph_tpu_torch/ec/kernel.py.  The
-CUDA kernel beside it uses the split-nibble product tables instead.
+CUDA kernel beside it looks products up in small tables by byte
+permute instead (``kernel.prmt_tables``).
 """
 
 from __future__ import annotations

@@ -6,8 +6,9 @@ parity rows of the generator for an encode, rows of a decode matrix for
 a degraded read or a rebuild.
 
   * ``gf_apply`` is the wrapper.  On a CUDA tensor it launches the kernel
-    of ``csrc/gf_apply.cu`` (the split-nibble table method; it replaces
-    the TPU kernel ``ceph_tpu/ec/kernel.py:_ec_fused_kernel``) or raises.
+    of ``csrc/gf_apply.cu`` (product tables looked up by byte permute in
+    registers; it replaces the TPU kernel
+    ``ceph_tpu/ec/kernel.py:_ec_fused_kernel``) or raises.
     On a CPU tensor, and only there, it runs the plain version.
   * ``gf_apply_checksum`` is the variant tuner's probe: the same apply
     with the output summed on the device (``out.astype(int32).sum()``,
@@ -20,9 +21,9 @@ a degraded read or a rebuild.
     The CPU tests run it, and the chip smoke test holds the kernel against
     it on the card.
   * ``from_reference_matrix`` turns a JAX-package numpy matrix into the
-    operands both need, on one device: the kernel's nibble tables and the
-    plain version's bit-matrix.  ``MatrixApply`` builds them once per
-    matrix; ``matrix_apply`` caches one per (matrix, device).
+    operands both need, on one device: the kernel's byte-permute tables
+    and the plain version's bit-matrix.  ``MatrixApply`` builds them once
+    per matrix; ``matrix_apply`` caches one per (matrix, device).
 
 Variant selection follows the JAX package's (``set_fused_config``,
 ``_resolve_fused_config``, ``TUNE_SPACE``, ``autotune``), over this
@@ -66,10 +67,12 @@ _lib = None
 #: lanes per thread, output rows per block); the first is the champion
 #: default
 TUNE_SPACE = [
-    (256, 16, 8),
-    (128, 16, 8),
-    (256, 32, 8),
+    (128, 16, 4),
     (256, 16, 4),
+    (64, 16, 4),
+    (512, 16, 4),
+    (128, 16, 8),
+    (256, 16, 8),
 ]
 
 _EC_THREADS, _EC_LANES, _EC_ROWS = TUNE_SPACE[0]
@@ -114,19 +117,23 @@ def _resolve_fused_config(shape: tuple) -> tuple:
 class MatrixOperands(NamedTuple):
     """One code matrix's operands, all on one device."""
     mat: np.ndarray          # [r, k] uint8, the GF(2^8) matrix (host)
-    tables: torch.Tensor     # [r, k, 32] uint8 nibble tables (the kernel's)
+    tables: torch.Tensor     # [r, k, 32] uint8 prmt tables (the kernel's)
     bitmat: torch.Tensor     # [8r, 8k] uint8 0/1 bit-matrix (the plain version's)
 
 
-def nibble_tables(mat: np.ndarray) -> np.ndarray:
-    """[r, k] GF(2^8) matrix -> [r, k, 32] product tables: for coefficient
-    c, bytes 0..15 hold c*x and bytes 16..31 hold c*(x << 4), x < 16, so
-    that c*b = t[b & 15] ^ t[16 + (b >> 4)] (ISA-L's ec_init_tables)."""
+def prmt_tables(mat: np.ndarray) -> np.ndarray:
+    """[r, k] GF(2^8) matrix -> [r, k, 32] byte-permute tables: for
+    coefficient c, bytes 0..7 hold c*i and bytes 8..15 hold c*(i << 3)
+    (i < 8), bytes 16..19 hold c*(i << 6) (i < 4), and bytes 20..31 are 0;
+    so that c*b = t[b & 7] ^ t[8 + ((b >> 3) & 7)] ^ t[16 + (b >> 6)]."""
     mul = gf256.mul_table()
-    x = np.arange(16)
     m = np.asarray(mat, np.uint8)[:, :, None]
-    return np.ascontiguousarray(
-        np.concatenate([mul[m, x], mul[m, x << 4]], axis=2), np.uint8)
+    i8, i4 = np.arange(8), np.arange(4)
+    t = np.zeros(m.shape[:2] + (32,), np.uint8)
+    t[:, :, 0:8] = mul[m, i8]
+    t[:, :, 8:16] = mul[m, i8 << 3]
+    t[:, :, 16:20] = mul[m, i4 << 6]
+    return t
 
 
 def from_reference_matrix(mat_np: np.ndarray,
@@ -140,7 +147,7 @@ def from_reference_matrix(mat_np: np.ndarray,
         raise ValueError(f"code matrix must be [r, k] with r, k >= 1 and "
                          f"r + k <= 255, got shape {mat.shape}")
     dev = resolve_device(device)
-    tables = torch.from_numpy(nibble_tables(mat)).to(dev)
+    tables = torch.from_numpy(prmt_tables(mat)).to(dev)
     bitmat = torch.from_numpy(gf256.expand_to_bitmatrix(mat)).to(dev)
     return MatrixOperands(mat, tables, bitmat)
 

@@ -11,12 +11,16 @@ card, and fails (exit code 1, no result line) on any fault:
      together, for sm_90a) and prints each build time and nvcc's register,
      spill and shared-memory report for every instantiation; counts the
      instructions of one straw2 draw in the built library's SASS
-     (crush_probe.py), which the CRUSH kernels' bounds rest on;
+     (crush_probe.py), which the CRUSH kernels' bounds rest on, and those
+     of the matrix apply's inner loop per 4-lane word, by pipe, with each
+     variant's registers and spills;
   2. holds the matrix-apply kernel against its plain PyTorch version on
      the card, bit for bit, at the main path's shapes and at odd ones, and
      against the numpy host path on small inputs; then every TUNE_SPACE
      variant and the checksum probe (gf_apply_checksum) at the same
-     shapes, and the probe on a sum that wraps past 2^31;
+     shapes, at every lane bucket of the batch queue, for r = 1, 2 and 4
+     and a large k, on strided and unaligned windows of wider buffers,
+     and the probe on a sum that wraps past 2^31;
   3. drives the main path: an OSD context and ECBatchQueue(mode="on",
      device="cuda"); 64 concurrent 4 MiB objects (RS k=8 m=4) split by the
      codec and encoded through the queue, then two rounds of degraded
@@ -25,7 +29,9 @@ card, and fails (exit code 1, no result line) on any fault:
      before and read just after, and must equal the queue's launches;
   4. runs the ec_benchmark entry point at 256 MiB, encode and decode;
   5. times the kernel and its plain version at the encode window
-     [8, 4 Mi] -> [4, 4 Mi] with CUDA events, and every variant;
+     [8, 4 Mi] -> [4, 4 Mi] with CUDA events, and every variant of both
+     entries there and at the decode windows [8, 1 Mi] and [8, 4 Mi] ->
+     [2, .] and [4, .], L2 flushed (crush_probe.gf_times);
   6. the variant tuner's path, as the JAX package's bench runs it: autotune
      the encode matrix (installed process-wide), then the decode matrix
      for lost chunks {0, 3} (bound to its shape), then encode and decode
@@ -44,7 +50,7 @@ card, and fails (exit code 1, no result line) on any fault:
      or down, through OSDMap.map_pgs_batch(engine="device") and
      osdmaptool --test-map-pgs (its default engine, the device), checked
      against engine="host"; then map_pgs_batch's steps are timed and the
-     descent kernel alone at each pool's size;
+     descent kernel alone at each pool's size, beside its bound there;
   9. times the probe, the descent and the winner grid beside their plain
      versions and bounds, and prints the ``kernels`` line.
 
@@ -93,13 +99,17 @@ def check(cond, what):
 
 def median_ms(torch, fn, reps, flush=None):
     """Median CUDA-event time of fn() over reps runs, after two warm-ups;
-    with ``flush`` (a large device buffer), L2 is evicted before each."""
+    with ``flush`` (a large device buffer), L2 is evicted before each.
+    Either way the launch queues behind device work, so the events do not
+    time the host's launch."""
     fn()
     fn()
     times = []
     for _ in range(reps):
         if flush is not None:
             flush.zero_()        # evicts L2; the launch queues behind it
+        else:
+            torch.cuda._sleep(200_000)      # about 0.1 ms of spinning
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
@@ -130,6 +140,34 @@ def check_variants(torch, np, gf256, kernel, dev, rng, cases):
             k2_bad += got_sum != want_sum
             check(got_sum == want_sum, f"checksum {cfg} on {label}: "
                                        f"{got_sum} != {want_sum}")
+    # windows of wider buffers, as the batch queue passes them, written
+    # into a window of a wider output: 16-byte aligned strided rows (the
+    # 16-byte path), rows at an odd offset and rows at an odd stride (the
+    # byte path)
+    enc = gf256.rs_vandermonde_matrix(K, M)[K:]
+    ops = kernel.from_reference_matrix(enc, dev)
+    for ld, start, width in ((100000, 16, 65536), (100000, 3, 50001),
+                             (100003, 0, 40000)):
+        big = torch.from_numpy(
+            rng.integers(0, 256, (K, ld), dtype=np.uint8)).to(dev)
+        seg = big[:, start:start + width]
+        want = kernel.gf_apply_plain(ops.bitmat, seg)
+        want_sum = int(kernel.gf_apply_checksum_plain(ops.bitmat, seg))
+        for cfg in kernel.TUNE_SPACE:
+            wide = torch.full((M, ld), 7, dtype=torch.uint8, device=dev)
+            kernel.gf_apply(ops, seg, out=wide[:, start:start + width],
+                            config=cfg)
+            bad = (int((wide[:, start:start + width] != want).sum())
+                   + int((wide[:, :start] != 7).sum())
+                   + int((wide[:, start + width:] != 7).sum()))
+            check(bad == 0, f"variant {cfg} on the window [{start}, "
+                            f"{start + width}) of rows {ld} wide: {bad} "
+                            f"bytes differ")
+            got_sum = int(kernel.gf_apply_checksum(ops, seg, config=cfg))
+            k2_bad += got_sum != want_sum
+            check(got_sum == want_sum, f"checksum {cfg} on the window "
+                                       f"[{start}, {start + width}) of rows "
+                                       f"{ld} wide: {got_sum} != {want_sum}")
     # four unit rows copy 4 x 2.2 Mi bytes >= 0xF0: the sum passes 2^31
     ops = kernel.from_reference_matrix(np.eye(4, dtype=np.uint8), dev)
     data = torch.from_numpy(rng.integers(0xF0, 0x100, (4, 2_200_003),
@@ -144,8 +182,8 @@ def check_variants(torch, np, gf256, kernel, dev, rng, cases):
     check(int(kernel.gf_apply_checksum_plain(ops.bitmat, data)) == wrapped,
           "plain checksum does not wrap")
     print(f"phase variants: {len(kernel.TUNE_SPACE)} variants x "
-          f"{len(cases)} cases bit-exact, checksum equal to the plain "
-          f"wrapped sum (wrap case {exact} -> {wrapped}) "
+          f"({len(cases)} cases + 3 windows) bit-exact, checksum equal to "
+          f"the plain wrapped sum (wrap case {exact} -> {wrapped}) "
           f"({time.perf_counter() - t0:.3f} s)")
     return k2_bad
 
@@ -461,7 +499,7 @@ def build_osdmap():
     return m
 
 
-def osdmap_path(torch, np, dev, smi):
+def osdmap_path(torch, np, dev, smi, draw_s):
     from ceph_tpu_torch.crush.constants import CRUSH_ITEM_NONE
     from ceph_tpu_torch.ops import crush_kernel as ck
     from ceph_tpu_torch.osd.osdmap import OSDMap
@@ -521,6 +559,7 @@ def osdmap_path(torch, np, dev, smi):
     # finish; and the descent kernel alone at the pool's size (these
     # launches come after the count was read)
     osd_w = torch.tensor(m.osd_weight, dtype=torch.int64, device=dev)
+    pools = []
     for pid in sorted(m.pools):
         pool = m.pools[pid]
         pgs = m.pg_ids(pid)
@@ -541,14 +580,31 @@ def osdmap_path(torch, np, dev, smi):
         xs_d = torch.tensor(pps, dtype=torch.int64, device=dev)
         k_ms = median_ms(torch, lambda: ck.crush_map(
             eng, xs_d, numrep, out_size, wts, osd_w), 21)
+        # the bound at the pool's size, counted as at 1M inputs: the draws
+        # the plain version needs for these inputs times one draw's SASS
+        work = {}
+        plain = ck.crush_map_plain(eng, xs_d, numrep, out_size, wts, osd_w,
+                                   work)
+        packed = ck.crush_map(eng, xs_d, numrep, out_size, wts, osd_w)
+        check(torch.equal(packed.to(torch.int64), plain.to(torch.int64)),
+              f"pool {pid}: the descent differs from its plain version")
+        draws = (work.get("straw2_draws", 0) + work.get("perm_hashes", 0)
+                 + work.get("is_out_hashes", 0))
+        ops_ms = draws * draw_s * 1e3
+        bytes_ms = len(pps) * (8 + 4 * packed.shape[1]) / HBM_BYTES_PER_S * 1e3
+        b_ms = max(ops_ms, bytes_ms)
+        pools.append({"pool": m.pool_names[pid], "pgs": len(pps), "ms": k_ms,
+                      "bound_ms": b_ms, "draws": draws})
         print(f"phase osdmap map_pgs_batch pool {pid} "
               f"({m.pool_names[pid]}, {pool.pg_num} pgs): {walls[pid]:.4f} "
               f"s; again in steps: pps {t1 - t0:.4f} s, batch_do_rule "
               f"{t2 - t1:.4f} s, per-pg finish {t3 - t2:.4f} s; crush_map "
               f"kernel alone [{len(pps)}] -> [{len(pps)}, "
-              f"{numrep + (1 if seg.firstn else 0)}] {k_ms:.4f} ms; "
-              f"card {smi}")
-    return launches
+              f"{numrep + (1 if seg.firstn else 0)}] {k_ms:.4f} ms, equal "
+              f"to the plain version; work {work}; bound {b_ms:.4f} ms "
+              f"(instructions {ops_ms:.4f}, bytes {bytes_ms:.4f}), "
+              f"{b_ms / k_ms * 100:.1f}% of bound; card {smi}")
+    return launches, pools
 
 
 def main() -> int:
@@ -585,21 +641,34 @@ def main() -> int:
     print(f"phase build: both sources in {time.perf_counter() - t0:.3f} s")
     for built in builds:
         print(f"  {built.name}: nvcc {built.seconds:.3f} s")
-        for line in built.ptxas.splitlines():
-            if ("registers" in line or "Compiling entry" in line
-                    or "spill" in line):
-                print(f"  ptxas: {line.strip()}")
-    from crush_probe import disassemble, draw_cost
+    for line in builds[1].ptxas.splitlines():
+        if ("registers" in line or "Compiling entry" in line
+                or "spill" in line):
+            print(f"  ptxas: {line.strip()}")
+    from crush_probe import disassemble, draw_cost, gf_report
     cost = draw_cost(disassemble(builds[1].path))
     draw_s = cost["sm_clocks_per_draw"] / SM_CLOCKS_PER_S
     print(f"phase build: one straw2 draw as compiled issues "
           f"{cost['per_draw']} instructions by pipe (mean of the item "
           f"loop's {len(cost['draw_paths'])} draw paths, cuobjdump -sass): "
           f"{cost['sm_clocks_per_draw']:.4f} SM clocks on the busiest pipe")
+    gf_cost = gf_report(builds[0])
+    for (cfg, checksum), c in gf_cost.items():
+        vec, byt = c["ptxas"]["vec"], c["ptxas"]["bytes"]
+        print(f"phase build: {'gf_apply_checksum' if checksum else 'gf_apply'}"
+              f" {cfg}: registers {vec.get('registers')} (16-byte path) / "
+              f"{byt.get('registers')} (byte path), spill stores "
+              f"{vec.get('spill_stores')} / {byt.get('spill_stores')} B; row "
+              f"loop {c['loop']} per 4-lane word and input row, by pipe, "
+              f"for each count of output rows served: {c['per_word']}; each "
+              f"output row adds {c['per_row']}")
 
     # -- phase 2: the kernel against its plain version -----------------
     gen = gf256.rs_vandermonde_matrix(K, M)
     cases = [("encode k=8 r=4", gen[K:], 1 << 22)]
+    # the batch queue's other lane buckets (ec_queue.LANE_BUCKETS)
+    for L in (1 << 14, 1 << 16, 1 << 18, 1 << 20):
+        cases.append((f"encode L={L}", gen[K:], L))
     for L in (333, 9000, (1 << 22) + 1):
         cases.append((f"encode odd L={L}", gen[K:], L))
     for lost in ([3], [0, 9], [1, 2, 8, 11]):
@@ -608,7 +677,15 @@ def main() -> int:
                       gf256.decode_matrix(gen, present, lost), 1 << 20))
     cases += [("rs k=2 m=1", gf256.rs_vandermonde_matrix(2, 1)[2:], 65536),
               ("cauchy k=4 m=2", gf256.cauchy_matrix(4, 2)[4:], 100000),
-              ("rs k=6 m=3", gf256.rs_vandermonde_matrix(6, 3)[6:], 77777)]
+              ("rs k=6 m=3", gf256.rs_vandermonde_matrix(6, 3)[6:], 77777),
+              # more output rows than a tile holds: tiles over gridDim.y
+              ("k=200 r=50", rng.integers(0, 256, (50, 200), dtype=np.uint8),
+               999),
+              # tables that fill the shared memory beside the load ring
+              ("k=128 r=9", rng.integers(0, 256, (9, 128), dtype=np.uint8),
+               4099),
+              ("k=254 r=1", rng.integers(0, 256, (1, 254), dtype=np.uint8),
+               4099)]
     max_abs_err, mismatches = 0, 0
     t0 = time.perf_counter()
     for label, mat, L in cases:
@@ -753,19 +830,42 @@ def main() -> int:
     bytes_ms = moved / HBM_BYTES_PER_S * 1e3
     ops_ms = 2 * (8 * M) * (8 * K) * L / INT8_OPS_PER_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
+    from crush_probe import gf_floor_ms, gf_times, sm_clock_under_load
+    floor_ms = gf_floor_ms(gf_cost[kernel.TUNE_SPACE[0], False], K, M, L,
+                           SM_CLOCKS_PER_S)
     print(f"phase timing: gf_apply [8, {L}] -> [4, {L}] median {ms:.4f} ms "
           f"({moved / ms / 1e6:.1f} GB/s), plain {plain_ms:.4f} ms, "
           f"bound {bound_ms:.4f} ms (bytes {bytes_ms:.4f}, int8-MMA ops "
-          f"{ops_ms:.4f}), {bound_ms / ms * 100:.1f}% of bound; card {smi}")
-    for cfg in kernel.TUNE_SPACE:
-        v_ms = median_ms(
-            torch, lambda: kernel.gf_apply(ops, data, config=cfg), 15, flush)
-        c_ms = median_ms(
-            torch, lambda: kernel.gf_apply_checksum(ops, data, cfg), 15,
-            flush)
-        print(f"  variant {cfg} (threads, lanes, rows): gf_apply "
-              f"{v_ms:.4f} ms ({moved / v_ms / 1e6:.1f} GB/s), "
-              f"gf_apply_checksum {c_ms:.4f} ms; card {smi}")
+          f"{ops_ms:.4f}), {bound_ms / ms * 100:.1f}% of bound; the row "
+          f"loop's SASS instructions take at least {floor_ms:.4f} ms; "
+          f"card {smi}")
+    clocks = sm_clock_under_load(torch, lambda: kernel.gf_apply(ops, data))
+    print(f"phase timing: SM clock while gf_apply runs back to back: "
+          f"{clocks} MHz (the floors take {SM_CLOCKS_PER_S / 132 / 1e6:.0f} "
+          f"MHz); card {smi}")
+    # every variant of both entries at the queue's encode and decode
+    # windows, beside each one's bytes bound and instruction floor
+    for row in gf_times(torch, dev):
+        cfg, r, k, n = row["variant"], row["r"], row["k"], row["L"]
+        b_ms = (k + r) * n / HBM_BYTES_PER_S * 1e3
+        cb_ms = k * n / HBM_BYTES_PER_S * 1e3
+        f_ms = gf_floor_ms(gf_cost[cfg, False], k, r, n, SM_CLOCKS_PER_S)
+        fc_ms = gf_floor_ms(gf_cost[cfg, True], k, r, n, SM_CLOCKS_PER_S)
+        if row["shape"].endswith("L2-resident"):
+            print(f"  {row['shape']} [{k}, {n}] -> [{r}, {n}] variant {cfg}"
+                  f": gf_apply {row['ms']:.4f} ms "
+                  f"({f_ms / row['ms'] * 100:.1f}% of its {f_ms:.4f} ms "
+                  f"instruction floor), "
+                  f"gf_apply_checksum {row['checksum_ms']:.4f} ms "
+                  f"({fc_ms / row['checksum_ms'] * 100:.1f}% of {fc_ms:.4f} "
+                  f"ms); card {smi}")
+            continue
+        print(f"  {row['shape']} [{k}, {n}] -> [{r}, {n}] variant {cfg}: "
+              f"gf_apply {row['ms']:.4f} ms ({b_ms / row['ms'] * 100:.1f}% "
+              f"of its {b_ms:.4f} ms bytes bound; instruction floor "
+              f"{f_ms:.4f} ms), gf_apply_checksum {row['checksum_ms']:.4f} "
+              f"ms ({cb_ms / row['checksum_ms'] * 100:.1f}% of "
+              f"{cb_ms:.4f} ms; floor {fc_ms:.4f} ms); card {smi}")
 
     # -- phase 6: the variant tuner's path -----------------------------
     k2_launches = tuner_path(torch, np, gf256, kernel, dev, smi)
@@ -774,7 +874,7 @@ def main() -> int:
     crush = crush_path(torch, np, dev, smi, draw_s)
 
     # -- phase 8: the OSDMap and osdmaptool ----------------------------
-    osdmap_launches = osdmap_path(torch, np, dev, smi)
+    osdmap_launches, pools = osdmap_path(torch, np, dev, smi, draw_s)
 
     # -- phase 9: the probe's timing, the kernels line ------------------
     cfg0 = kernel.TUNE_SPACE[0]
@@ -786,11 +886,12 @@ def main() -> int:
     k2_bytes_ms = K * L / HBM_BYTES_PER_S * 1e3
     k2_ops_ms = 2 * (8 * M) * (8 * K) * L / INT8_OPS_PER_S * 1e3
     k2_bound_ms = max(k2_bytes_ms, k2_ops_ms)
+    k2_floor_ms = gf_floor_ms(gf_cost[cfg0, True], K, M, L, SM_CLOCKS_PER_S)
     print(f"phase timing: gf_apply_checksum {cfg0} [8, {L}] -> int32 "
           f"median {k2_ms:.4f} ms, plain {k2_plain_ms:.4f} ms, bound "
           f"{k2_bound_ms:.4f} ms (bytes {k2_bytes_ms:.4f}, int8-MMA ops "
           f"{k2_ops_ms:.4f}), {k2_bound_ms / k2_ms * 100:.1f}% of bound; "
-          f"card {smi}")
+          f"instruction floor {k2_floor_ms:.4f} ms; card {smi}")
 
     print(json.dumps({"kernels": [{
         "name": "gf_apply",
@@ -806,6 +907,7 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None,
+        "instruction_floor_ms": floor_ms,
         "shape": f"[{K}, {L}] -> [{M}, {L}] uint8",
     }, {
         "name": "gf_apply_checksum",
@@ -821,6 +923,7 @@ def main() -> int:
         "bound_ms": k2_bound_ms,
         "bound_by": "bytes" if k2_bytes_ms >= k2_ops_ms else "operations",
         "library_ms": None,
+        "instruction_floor_ms": k2_floor_ms,
         "shape": f"[{K}, {L}] uint8 -> int32 scalar, variant {cfg0}",
     }, {
         "name": "crush_map",
@@ -839,6 +942,7 @@ def main() -> int:
         "shape": f"3 rules x {CRUSH_N} inputs: xs [{CRUSH_N}] int64 -> "
                  f"osds [{CRUSH_N}, 3 + count | 6 | 3 + count] int32",
         "rules": crush["rules"],
+        "pools": pools,
     }, {
         "name": "crush_straw2_winners",
         "route": "cuda",

@@ -1,8 +1,11 @@
 #!/usr/bin/env python3
-"""Measurements behind the CRUSH rows of PERF.md, one subcommand each.
+"""Measurements behind the CRUSH and EC kernel rows of PERF.md, one
+subcommand each.
 
     python3 crush_probe.py host-engines [--sizes 16,64,256,1024,4096]
     python3 crush_probe.py sass-ops
+    python3 crush_probe.py gf-ops
+    python3 crush_probe.py gf-times
 
 ``host-engines`` times the two CPU descents of the port on the chip smoke
 test's maps (1024 OSDs, 128 hosts x 8; replicated firstn x3, EC indep x6,
@@ -20,6 +23,20 @@ draw per item) along the path a drawn item with a nonzero weight takes,
 plus the 64-bit division routine it calls.  It splits the count by the
 pipe that executes each instruction on Hopper, and prints it as JSON.
 It needs the CUDA toolkit, not a card.
+
+``gf-ops`` does the same for ``csrc/gf_apply.cu``: for every TUNE_SPACE
+variant it counts, by pipe, the instructions that the input-row loop of
+the 16-byte-load path issues per 4-lane word, for each number of output
+rows the loop serves, and the floor those instructions set at the encode
+window; with nvcc's ``-Xptxas -v`` registers and spills.  It needs the
+toolkit, not a card.
+
+``gf-times`` times every TUNE_SPACE variant of ``gf_apply`` and
+``gf_apply_checksum`` on the card at the shapes the EC batch queue
+launches (the encode window and the decode windows), with L2 flushed
+before each launch.  It uses only the kernel module's public entry
+points, so a copy of this file run from the root of an older checkout
+times that checkout's kernel.
 """
 
 from __future__ import annotations
@@ -96,8 +113,8 @@ PIPES = (
                        r"VIADD|MOV|CS2R)\b")),
     ("fma", re.compile(r"^(IMAD|IDP|FFMA|FMUL|FADD|HFMA2|HMUL2|HADD2)\b")),
     ("slow", re.compile(r"^(MUFU|I2F|F2I|F2F|I2I|FRND|FLO|POPC|BREV)\b")),
-    ("mem", re.compile(r"^(LD|LDS|LDG|LDC|LDL|ST|STS|STG|STL|ATOM|ATOMS|"
-                       r"ATOMG|RED)\b")),
+    ("mem", re.compile(r"^(LD|LDS|LDG|LDGSTS|LDC|LDL|ST|STS|STG|STL|ATOM|"
+                       r"ATOMS|ATOMG|RED)\b")),
     ("uniform", re.compile(r"^(U[A-Z0-9]+|S2UR)\b")),
 )
 _INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
@@ -229,6 +246,226 @@ def draw_cost(sass: str):
             "sm_rates": SM_RATES}
 
 
+# ------------------------------------------------------------ gf_apply ops
+_GF_KERNEL = re.compile(
+    r"gf_apply_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb([01])ELb([01])E")
+_WIDE_LOAD = re.compile(r"^LDG\S*\.128\b")
+
+
+def gf_kernel(funcs, variant, vec=True, checksum=False) -> str:
+    """The name of gf_apply_kernel<threads, lanes, rows, vec, checksum>
+    among ``functions(sass)``."""
+    want = tuple(variant) + (int(vec), int(checksum))
+    for name in funcs:
+        m = _GF_KERNEL.search(name)
+        if m and tuple(map(int, m.groups())) == want:
+            return name
+    raise ValueError(f"no gf_apply_kernel{want} in the SASS")
+
+
+def gf_word_cost(funcs, variant, checksum=False):
+    """Instructions per 4-lane word and input row of one variant's
+    16-byte-load path, as compiled: the input-row loop is the backward
+    branch whose body makes 16-byte loads and PRMTs (the table copy
+    makes 16-byte loads only, the byte path PRMTs only); each path
+    through it serves some number of output rows (its PRMTs over 3 per
+    word), and the longest path per row count is kept.  ``per_row`` and ``base`` fit
+    the counts of the fewest and the most rows served; loads and stores
+    outside the loop (the tables, the epilogue) are left out.  ``funcs``
+    is ``functions(sass)``."""
+    name = gf_kernel(funcs, variant, True, checksum)
+    insns = funcs[name]
+    words = variant[1] // 4
+    back = [(a, _target(t)) for a, (t, _) in insns.items()
+            if t.split()[0].split(".")[0] == "BRA" and _target(t) < a
+            and any(_WIDE_LOAD.match(insns[b][0])
+                    for b in range(_target(t), a, 16))
+            and any(insns[b][0].startswith("PRMT")
+                    for b in range(_target(t), a, 16))]
+    if len(back) != 1:
+        raise ValueError(f"{len(back)} row loops with 16-byte loads in "
+                         f"{name}")
+    stop, start = back[0]
+    by_rows = {}
+    for path in loop_paths(insns, start, stop):
+        if not any(_WIDE_LOAD.match(t) for t in path):
+            continue
+        n = count(path)
+        rows = round(sum(t.startswith("PRMT") for t in path) / (3 * words))
+        if rows not in by_rows or n["issue"] > by_rows[rows]["issue"]:
+            by_rows[rows] = n
+    if not by_rows:
+        raise ValueError(f"no path of {name}'s row loop loads")
+    per_word = {rows: {p: c / words for p, c in n.items()}
+                for rows, n in sorted(by_rows.items())}
+    lo, hi = min(per_word), max(per_word)
+    if hi == lo:
+        raise ValueError(f"{name}'s row loop serves {lo} rows only")
+    per_row = {p: (per_word[hi][p] - per_word[lo][p]) / (hi - lo)
+               for p in per_word[hi]}
+    base = {p: per_word[lo][p] - lo * per_row[p] for p in per_word[lo]}
+    return {"function": name, "loop": [hex(start), hex(stop)],
+            "words_per_thread": words, "per_word": per_word,
+            "per_row": per_row, "base": base}
+
+
+def gf_floor_ms(cost, k: int, r: int, L: int, sm_clocks_per_s: float):
+    """The least time the row loop's instructions take for [k, L] ->
+    [r, L] on the card: L/4 words times k input rows times the SM clocks
+    of one word on its busiest pipe, per row tile of the variant (a tile
+    serves up to its rows; each tile runs the loop again)."""
+    max_rows = max(cost["per_word"])
+    clocks = 0.0
+    for r0 in range(0, r, max_rows):
+        rt = min(max_rows, r - r0)
+        by = cost["per_word"].get(rt)
+        if by is None:
+            by = {p: cost["base"][p] + rt * cost["per_row"][p]
+                  for p in cost["base"]}
+        clocks += sm_clocks(by)
+    return L / 4 * k * clocks / sm_clocks_per_s * 1e3
+
+
+def ptxas_report(text: str):
+    """{function: {registers, spill_stores, spill_loads}} from nvcc's
+    ``-Xptxas -v`` output."""
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([A-Za-z0-9_]+)'?", line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
+def gf_report(built):
+    """{(variant, checksum): row-loop cost} for every TUNE_SPACE variant
+    of both entries of a built gf_apply library: ``gf_word_cost`` plus
+    ``ptxas``, the registers and spills of its 16-byte-path ("vec") and
+    byte-path ("bytes") kernels."""
+    from ceph_tpu_torch.ec import kernel
+    funcs = functions(disassemble(built.path))
+    regs = ptxas_report(built.ptxas)
+    out = {}
+    for variant in kernel.TUNE_SPACE:
+        for checksum in (False, True):
+            cost = gf_word_cost(funcs, variant, checksum)
+            cost["ptxas"] = {
+                ("vec" if vec else "bytes"): regs.get(
+                    gf_kernel(funcs, variant, vec, checksum), {})
+                for vec in (True, False)}
+            out[variant, checksum] = cost
+    return out
+
+
+def gf_ops():
+    from chip_smoke import K, M, SM_CLOCKS_PER_S
+    from ceph_tpu_torch.common.cuda_build import build
+    for (variant, checksum), cost in gf_report(build("gf_apply")).items():
+        print(json.dumps({
+            "variant": variant,
+            "entry": "gf_apply_checksum" if checksum else "gf_apply",
+            "per_word": cost["per_word"], "per_row": cost["per_row"],
+            "base": cost["base"], "ptxas": cost["ptxas"],
+            "floor_ms_encode": gf_floor_ms(cost, K, M, 1 << 22,
+                                           SM_CLOCKS_PER_S)}))
+
+
+def sm_clock_under_load(torch, fn, seconds: float = 1.0):
+    """The SM clocks (MHz) nvidia-smi samples every 50 ms while fn()
+    runs back to back for ``seconds``."""
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+         "nounits", "-lms", "50"], stdout=subprocess.PIPE, text=True)
+    try:
+        time.sleep(0.2)
+        end = time.perf_counter() + seconds
+        while time.perf_counter() < end:
+            for _ in range(50):
+                fn()
+            torch.cuda.synchronize()
+    finally:
+        proc.terminate()
+        out = proc.communicate(timeout=30)[0]
+    return [int(v) for v in out.split() if v.isdigit()]
+
+
+def gf_times(torch, dev, reps: int = 15):
+    """Median L2-flushed time of every TUNE_SPACE variant of gf_apply and
+    gf_apply_checksum at the EC batch queue's windows: the k=8 m=4
+    encode at 4 Mi lanes, and the decode matrices that rebuild 2 and 4
+    lost data chunks at 1 Mi and 4 Mi lanes.  Then the encode matrix at
+    2 Mi lanes with no flush, whose 24 MiB stay in the 50 MB L2: with
+    HBM out of the way, what the instructions take."""
+    from chip_smoke import K, M, median_ms
+    from ceph_tpu_torch.ec import gf256, kernel
+    gen = gf256.rs_vandermonde_matrix(K, M)
+    mats = [("encode", gen[K:])]
+    for lost in ([0, 3], [0, 1, 2, 3]):
+        present = [i for i in range(K + M) if i not in lost][:K]
+        mats.append((f"decode {len(lost)} lost",
+                     gf256.decode_matrix(gen, present, lost)))
+    shapes = [(mats[0], 1 << 22)] + [(m, L) for m in mats[1:]
+                                     for L in (1 << 20, 1 << 22)]
+    gen_t = torch.Generator(device=dev)
+    gen_t.manual_seed(5)
+    flush = torch.empty(512 << 20, dtype=torch.uint8, device=dev)
+    rows = []
+    for (label, mat), L in shapes:
+        r, k = mat.shape
+        ops = kernel.from_reference_matrix(mat, dev)
+        data = torch.randint(0, 256, (k, L), dtype=torch.uint8, device=dev,
+                             generator=gen_t)
+        for cfg in kernel.TUNE_SPACE:
+            ms = median_ms(torch, lambda: kernel.gf_apply(ops, data,
+                                                          config=cfg),
+                           reps, flush)
+            c_ms = median_ms(torch, lambda: kernel.gf_apply_checksum(
+                ops, data, cfg), reps, flush)
+            rows.append({"shape": label, "k": k, "r": r, "L": L,
+                         "variant": cfg, "ms": ms, "checksum_ms": c_ms})
+    mat = mats[0][1]
+    ops = kernel.from_reference_matrix(mat, dev)
+    data = torch.randint(0, 256, (K, 1 << 21), dtype=torch.uint8,
+                         device=dev, generator=gen_t)
+    for cfg in kernel.TUNE_SPACE:
+        ms = median_ms(torch, lambda: kernel.gf_apply(ops, data, config=cfg),
+                       reps)
+        c_ms = median_ms(torch, lambda: kernel.gf_apply_checksum(
+            ops, data, cfg), reps)
+        rows.append({"shape": "encode, L2-resident", "k": K, "r": M,
+                     "L": 1 << 21, "variant": cfg, "ms": ms,
+                     "checksum_ms": c_ms})
+    return rows
+
+
+def gf_times_main():
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("gf-times needs a CUDA device")
+    from chip_smoke import K, M
+    from ceph_tpu_torch.ec import gf256, kernel
+    dev = torch.device("cuda")
+    for row in gf_times(torch, dev):
+        print(json.dumps(row))
+    ops = kernel.from_reference_matrix(gf256.rs_vandermonde_matrix(K, M)[K:],
+                                       dev)
+    data = torch.randint(0, 256, (K, 1 << 22), dtype=torch.uint8,
+                         device=dev)
+    print(json.dumps({"sm_clock_mhz_under_load": sm_clock_under_load(
+        torch, lambda: kernel.gf_apply(ops, data))}))
+
+
 def disassemble(lib_path: str) -> str:
     from ceph_tpu_torch.common.cuda_build import nvcc_path
     tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
@@ -255,11 +492,17 @@ def main(argv=None) -> int:
     h = sub.add_parser("host-engines")
     h.add_argument("--sizes", default="16,64,256,1024,4096")
     sub.add_parser("sass-ops")
+    sub.add_parser("gf-ops")
+    sub.add_parser("gf-times")
     args = ap.parse_args(argv)
     if args.cmd == "host-engines":
         host_engines([int(s) for s in args.sizes.split(",")])
-    else:
+    elif args.cmd == "sass-ops":
         sass_ops()
+    elif args.cmd == "gf-ops":
+        gf_ops()
+    else:
+        gf_times_main()
     return 0
 
 

@@ -93,3 +93,125 @@ def test_a_branch_out_of_the_loop_is_refused():
     insns[0x80] = ("BRA 0x130", "@P0 BRA 0x130")
     with pytest.raises(ValueError, match="leaves the loop"):
         cp.loop_paths(insns, 0x30, 0x120)
+
+
+# -- gf_apply's row loop ------------------------------------------------------
+
+GF_NAME = ("_ZN12_GLOBAL__N_115gf_apply_kernelILi256ELi16ELi2ELb1ELb0EEE"
+           "vPKhiiiS2_xPhxxPj")
+GF_BYTES = GF_NAME.replace("ELb1ELb0E", "ELb0ELb0E")
+
+
+def _listing(name, body):
+    lines = [f"\t\tFunction : {name}"]
+    lines += [f"        /*{16 * i:04x}*/                   {text} ;  /* 0x0 */"
+              for i, text in enumerate(body)]
+    return "\n".join(lines) + "\n"
+
+
+def _gf_sass():
+    """A 16-byte-path kernel of (256, 16, 2) whose row loop serves 0, 1 or
+    2 output rows of 4 words (12 PRMT and 8 LOP3 each), and a byte-path
+    kernel whose loop loads bytes."""
+    sel = ["LOP3.LUT R8, R4, 0x7070707, RZ, 0xc0, !PT",
+           "SHF.R.U32.HI R9, RZ, 0x3, R4",
+           "LOP3.LUT R9, R9, 0x7070707, RZ, 0xc0, !PT",
+           "SHF.R.U32.HI R10, RZ, 0x6, R4",
+           "LOP3.LUT R10, R10, 0x3030303, RZ, 0xc0, !PT",
+           "LEA.HI R8, R8, R8, RZ, 0x14", "LEA.HI R9, R9, R9, RZ, 0x14",
+           "LEA.HI R10, R10, R10, RZ, 0x14"] * 4
+    row = (["LDS.128 R12, [R3]", "LDS R16, [R3+0x10]"]
+           + ["PRMT R17, R12, R8, R13"] * 12
+           + ["LOP3.LUT R20, R20, R17, R18, 0x96, !PT"] * 8)
+    start = 2
+    body = ["LDC R1, c[0x0][0x28]", "S2R R0, SR_TID.X",
+            "LDG.E.128.CONSTANT R4, desc[UR4][R2.64]"] + sel
+    guard1 = len(body) + 1
+    body += ["ISETP.GE.AND P1, PT, R11, 0x1, PT", None] + row
+    guard2 = len(body) + 1
+    body += ["ISETP.GE.AND P2, PT, R11, 0x2, PT", None] + row
+    end = len(body)
+    body += ["IADD3 R7, R7, 0x1, RZ", "IMAD.WIDE R2, R5, 0x1, R2",
+             "ISETP.GE.AND P0, PT, R7, R6, PT", f"@P0 BRA {16 * start:#x}",
+             "EXIT"]
+    body[guard1] = f"@!P1 BRA {16 * end:#x}"
+    body[guard2] = f"@!P2 BRA {16 * end:#x}"
+    byte_loop = ["LDC R1, c[0x0][0x28]",
+                 "LDG.E.U8.CONSTANT R4, desc[UR4][R2.64]",
+                 "PRMT R5, R4, 0x3120, RZ", "@P0 BRA 0x10", "EXIT"]
+    return _listing(GF_NAME, body) + _listing(GF_BYTES, byte_loop)
+
+
+def test_gf_word_cost_counts_each_row_count_per_word():
+    cost = cp.gf_word_cost(cp.functions(_gf_sass()), (256, 16, 2))
+    assert cost["function"] == GF_NAME and cost["words_per_thread"] == 4
+    per = cost["per_word"]
+    assert sorted(per) == [0, 1, 2]
+    # 0 rows: 32 selector ops and 3 loop ops on the ALU, the IMAD, the
+    # load, the guard's and the loop's branches
+    assert per[0] == {"alu": 35 / 4, "fma": 1 / 4, "slow": 0, "mem": 1 / 4,
+                      "uniform": 0, "control": 2 / 4, "issue": 39 / 4}
+    assert per[2] == {"alu": 76 / 4, "fma": 1 / 4, "slow": 0, "mem": 5 / 4,
+                      "uniform": 0, "control": 3 / 4, "issue": 85 / 4}
+    assert cost["per_row"]["alu"] == (76 - 35) / 2 / 4
+    assert cost["base"] == per[0]
+    with pytest.raises(ValueError, match="no gf_apply_kernel"):
+        cp.gf_word_cost(cp.functions(_gf_sass()), (128, 16, 2))
+
+
+def test_gf_floor_takes_each_row_tile_on_its_busiest_pipe():
+    cost = cp.gf_word_cost(cp.functions(_gf_sass()), (256, 16, 2))
+    clocks = {rows: cp.sm_clocks(by) for rows, by in cost["per_word"].items()}
+    assert clocks[2] == 76 / 4 / 64
+    L, per_s = 1 << 20, 1e12
+    assert cp.gf_floor_ms(cost, 8, 4, L, per_s) == pytest.approx(
+        L / 4 * 8 * 2 * clocks[2] / per_s * 1e3)
+    assert cp.gf_floor_ms(cost, 8, 3, L, per_s) == pytest.approx(
+        L / 4 * 8 * (clocks[2] + clocks[1]) / per_s * 1e3)
+    del cost["per_word"][1]        # a row count no path served: the fit
+    fit = {p: cost["base"][p] + cost["per_row"][p] for p in cost["base"]}
+    assert cp.gf_floor_ms(cost, 8, 3, L, per_s) == pytest.approx(
+        L / 4 * 8 * (clocks[2] + cp.sm_clocks(fit)) / per_s * 1e3)
+
+
+PTXAS = f"""ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '{GF_NAME}' for 'sm_90a'
+ptxas info    : Function properties for {GF_NAME}
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, 376 bytes cmem[0]
+ptxas info    : Compiling entry function '{GF_BYTES}' for 'sm_90a'
+ptxas info    : Function properties for {GF_BYTES}
+    8 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 255 registers, 376 bytes cmem[0]
+"""
+
+
+def test_ptxas_report_reads_registers_and_spills():
+    rep = cp.ptxas_report(PTXAS)
+    assert rep == {GF_NAME: {"registers": 40, "spill_stores": 0,
+                             "spill_loads": 0},
+                   GF_BYTES: {"registers": 255, "spill_stores": 4,
+                              "spill_loads": 8}}
+    funcs = cp.functions(_gf_sass())
+    assert cp.gf_kernel(funcs, (256, 16, 2), vec=False) == GF_BYTES
+
+
+def test_gf_report_joins_costs_and_registers(monkeypatch):
+    """gf_report on a built library: one cost per variant and entry, each
+    with the registers of its 16-byte-path and byte-path kernels."""
+    from types import SimpleNamespace
+
+    from ceph_tpu_torch.ec import kernel
+    sums = [GF_NAME.replace("ELb1ELb0E", "ELb1ELb1E"),
+            GF_NAME.replace("ELb1ELb0E", "ELb0ELb1E")]
+    sass = _gf_sass() + "".join(_listing(n, ["EXIT"]) for n in sums)
+    monkeypatch.setattr(cp, "disassemble", lambda path: sass)
+    monkeypatch.setattr(kernel, "TUNE_SPACE", [(256, 16, 2)])
+    monkeypatch.setattr(cp, "gf_word_cost",
+                        lambda funcs, variant, checksum=False: {})
+    rep = cp.gf_report(SimpleNamespace(path="lib.so", ptxas=PTXAS))
+    assert list(rep) == [((256, 16, 2), False), ((256, 16, 2), True)]
+    assert rep[(256, 16, 2), False]["ptxas"] == {
+        "vec": {"registers": 40, "spill_stores": 0, "spill_loads": 0},
+        "bytes": {"registers": 255, "spill_stores": 4, "spill_loads": 8}}
+    assert rep[(256, 16, 2), True]["ptxas"] == {"vec": {}, "bytes": {}}

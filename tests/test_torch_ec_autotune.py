@@ -33,36 +33,36 @@ def fresh_config(monkeypatch):
 
 
 def test_tune_space_starts_with_the_champion():
-    assert kernel.TUNE_SPACE[0] == (256, 16, 8)
+    assert kernel.TUNE_SPACE[0] == (128, 16, 4)
     assert len(set(kernel.TUNE_SPACE)) == len(kernel.TUNE_SPACE) >= 4
-    assert kernel._resolve_fused_config((4, 8)) == (256, 16, 8)
+    assert kernel._resolve_fused_config((4, 8)) == (128, 16, 4)
 
 
 def test_global_config_reaches_every_shape():
-    got = kernel.set_fused_config(threads=128)
-    assert got == {"threads": 128, "lanes": 16, "rows": 8}
-    assert kernel._resolve_fused_config((4, 8)) == (128, 16, 8)
-    assert kernel._resolve_fused_config((2, 8)) == (128, 16, 8)
+    got = kernel.set_fused_config(threads=256)
+    assert got == {"threads": 256, "lanes": 16, "rows": 4}
+    assert kernel._resolve_fused_config((4, 8)) == (256, 16, 4)
+    assert kernel._resolve_fused_config((2, 8)) == (256, 16, 4)
 
 
 def test_shape_config_binds_one_shape_with_global_bases():
-    kernel.set_fused_config(lanes=32)                 # global: (256, 32, 8)
-    got = kernel.set_fused_config(lanes=16, rows=4, shape=(2, 8))
-    assert got == {"threads": 256, "lanes": 16, "rows": 4, "shape": (2, 8)}
-    assert kernel._resolve_fused_config((2, 8)) == (256, 16, 4)
-    assert kernel._resolve_fused_config((4, 8)) == (256, 32, 8)
+    kernel.set_fused_config(threads=256)              # global: (256, 16, 4)
+    got = kernel.set_fused_config(rows=8, shape=(2, 8))
+    assert got == {"threads": 256, "lanes": 16, "rows": 8, "shape": (2, 8)}
+    assert kernel._resolve_fused_config((2, 8)) == (256, 16, 8)
+    assert kernel._resolve_fused_config((4, 8)) == (256, 16, 4)
     # a later shape-bound change takes its bases from the bound entry
-    kernel.set_fused_config(rows=8, shape=(2, 8))
-    assert kernel._resolve_fused_config((2, 8)) == (256, 16, 8)
+    kernel.set_fused_config(threads=128, shape=(2, 8))
+    assert kernel._resolve_fused_config((2, 8)) == (128, 16, 8)
     # a later global change leaves the bound shape alone
-    kernel.set_fused_config(threads=128, lanes=16)
-    assert kernel._resolve_fused_config((4, 8)) == (128, 16, 8)
-    assert kernel._resolve_fused_config((2, 8)) == (256, 16, 8)
+    kernel.set_fused_config(threads=512, rows=4)
+    assert kernel._resolve_fused_config((4, 8)) == (512, 16, 4)
+    assert kernel._resolve_fused_config((2, 8)) == (128, 16, 8)
 
 
 def test_unknown_variant_raises():
     with pytest.raises(ValueError, match="not in TUNE_SPACE"):
-        kernel.set_fused_config(threads=64)
+        kernel.set_fused_config(threads=32)
     ops = kernel.from_reference_matrix(GEN[8:], "cpu")
     data = torch.zeros((8, 64), dtype=torch.uint8)
     with pytest.raises(ValueError, match="not in TUNE_SPACE"):
@@ -76,9 +76,9 @@ def test_launches_resolve_the_config_at_each_call():
     ap = kernel.MatrixApply(GEN[8:], "cpu")
     data = torch.zeros((8, 128), dtype=torch.uint8)
     ap.device_call(data)
-    kernel.set_fused_config(threads=128)
+    kernel.set_fused_config(threads=256)
     ap.device_call(data)
-    kernel.set_fused_config(threads=256, rows=4, shape=(4, 8))
+    kernel.set_fused_config(threads=64, rows=4, shape=(4, 8))
     ap.device_call(data)
     c = devstats.counters()
     assert c["launches"]["ec_apply"] == 3
@@ -117,11 +117,11 @@ def test_autotune_picks_the_best_slope(monkeypatch):
 
 
 def test_autotune_slope_noise_fallback(monkeypatch):
-    kernel.set_fused_config(threads=128)
+    kernel.set_fused_config(threads=256)
     monkeypatch.setattr(kernel, "_probe_seconds",
                         lambda ops, data, cfg: 1.0 / data.numel())
     got = kernel.autotune(GEN[8:], length=1 << 14, trials=1, device="cpu")
-    assert got == {"threads": 256, "lanes": 16, "rows": 8,
+    assert got == {"threads": 128, "lanes": 16, "rows": 4,
                    "rate_mb_s": None, "note": "slope-noise fallback"}
     assert kernel._resolve_fused_config((4, 8)) == kernel.TUNE_SPACE[0]
     got = kernel.autotune(GEN[8:], length=1 << 14, trials=1,

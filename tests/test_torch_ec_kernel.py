@@ -5,9 +5,10 @@ The same numpy-seeded inputs go through the port on the CPU (the plain
 PyTorch version) and through the reference: ``gf256.host_apply``,
 ``ceph_tpu.ec.kernel.matrix_apply`` and the Pallas kernel in interpret
 mode.  All of the arithmetic is integer, so every comparison is exact:
-no tolerance.  A numpy emulation of the CUDA kernel's table arithmetic
-checks the kernel's method without a card; the kernel itself is held
-against the plain version in test_torch_gpu.py and chip_smoke.py.
+no tolerance.  A numpy model of the CUDA kernel's arithmetic (its
+tables, selectors and byte-permute lookups, word by word) checks the
+kernel's method without a card; the kernel itself is held against the
+plain version in test_torch_gpu.py and chip_smoke.py.
 """
 
 import numpy as np
@@ -41,24 +42,57 @@ def _decode_case(k, m, lost, L, seed):
     return mat, rng.integers(0, 256, (k, L), dtype=np.uint8)
 
 
-def emulate_cuda_kernel(tables, chunks):
-    """What csrc/gf_apply.cu computes, in numpy: for each output row and
-    input row, look each byte's low and high nibble up in the
-    coefficient's 32-byte table and XOR-accumulate.  Lanes go 16 to a
-    thread with the ragged tail masked, as the kernel walks them."""
+def prmt(a, b, sel):
+    """PTX ``prmt.b32`` in its default mode, on uint32 arrays: byte n of
+    the result is byte ``(sel >> 4n) & 7`` of the 8 bytes b:a.  A set bit
+    3 in a selector nibble would replicate that byte's sign bit instead;
+    the kernel keeps it clear, and this model refuses it."""
+    a, b, sel = (np.asarray(v, np.uint64) for v in (a, b, sel))
+    v = (b << np.uint64(32)) | a
+    d = np.zeros(np.broadcast(a, b, sel).shape, np.uint64)
+    for n in range(4):
+        nib = (sel >> np.uint64(4 * n)) & np.uint64(15)
+        assert not (nib & np.uint64(8)).any(), "selector bit 3 set"
+        d |= ((v >> (np.uint64(8) * nib)) & np.uint64(0xFF)) \
+            << np.uint64(8 * n)
+    return d.astype(np.uint32)
+
+
+def selectors(x):
+    """The kernel's selectors of the 3-, 3- and 2-bit fields of each byte
+    of the uint32 words x: y = (x >> s) & m, then y + (y >> 12), which
+    puts the fields of bytes 0, 2, 1, 3 into the low four nibbles."""
+    x = np.asarray(x, np.uint32)
+    out = []
+    for shift, mask in ((0, 0x07070707), (3, 0x07070707), (6, 0x03030303)):
+        y = (x >> np.uint32(shift)) & np.uint32(mask)
+        out.append(y + (y >> np.uint32(12)))
+    return out
+
+
+def emulate_cuda_kernel(tables, chunks, lanes=16):
+    """What csrc/gf_apply.cu computes, in numpy, word by word: lanes go
+    ``lanes`` to a thread, and lanes past L load as zeros (the masked
+    ragged tail).  For each input row j the selectors of every 4-lane
+    word are made once; each output row i XORs the three prmt lookups
+    into its accumulator (bytes in the order 0, 2, 1, 3), and each output
+    word is restored by prmt(acc, 0, 0x3120) before the masked store."""
     r, k, _ = tables.shape
     L = chunks.shape[1]
-    out = np.zeros((r, L), np.uint8)
-    for lane0 in range(0, L, 16):
-        n = min(16, L - lane0)
+    width = -(-L // lanes) * lanes
+    x = np.zeros((k, width), np.uint8)
+    x[:, :L] = chunks
+    xw = x.view("<u4")
+    tw = np.ascontiguousarray(tables).view("<u4")       # [r, k, 8] words
+    acc = np.zeros((r, width // 4), np.uint32)
+    for j in range(k):
+        s0, s1, s2 = selectors(xw[j])
         for i in range(r):
-            acc = np.zeros(n, np.uint8)
-            for j in range(k):
-                x = chunks[j, lane0:lane0 + n]
-                t = tables[i, j]
-                acc ^= t[x & 15] ^ t[16 + (x >> 4)]
-            out[i, lane0:lane0 + n] = acc
-    return out
+            t = tw[i, j]
+            acc[i] ^= (prmt(t[0], t[1], s0) ^ prmt(t[2], t[3], s1)
+                       ^ prmt(t[4], 0, s2))
+    out = prmt(acc, 0, 0x3120).astype("<u4").view(np.uint8)
+    return out.reshape(r, width)[:, :L]
 
 
 @pytest.mark.parametrize("r,k,L", SHAPES)
@@ -88,20 +122,58 @@ def test_decode_matrices_match_reference(lost):
     assert np.array_equal(got, ref_kernel.matrix_apply(mat)(surv))
 
 
-@pytest.mark.parametrize("r,k,L", SHAPES + [(2, 8, 17), (1, 1, 1)])
-def test_nibble_table_emulation_matches_reference(r, k, L):
+def test_prmt_tables_multiply_every_coefficient_and_byte():
+    """All 65,536 (c, b) pairs through the tables and the kernel's
+    arithmetic against the reference's field multiplication."""
+    coeffs = np.arange(256, dtype=np.uint8)[:, None]
+    tables = kernel.prmt_tables(coeffs)
+    assert tables.shape == (256, 1, 32) and tables.dtype == np.uint8
+    assert not tables[:, :, 20:].any()
+    got = emulate_cuda_kernel(tables, np.arange(256, dtype=np.uint8)[None])
+    want = np.array([[ref_gf256.gf_mul(c, b) for b in range(256)]
+                     for c in range(256)], np.uint8)
+    assert np.array_equal(got, want)
+
+
+def test_selectors_pack_fields_in_lane_order_0_2_1_3():
+    """Every byte value in every lane: nibble n of the selector holds the
+    field of lane (0, 2, 1, 3)[n], bit 3 clear."""
+    b = np.arange(256, dtype=np.uint32)
+    for lane in range(4):
+        for other in (0, 0xFF):
+            x = np.full(256, other * 0x01010101, np.uint32)
+            x &= ~np.uint32(0xFF << (8 * lane))
+            x |= b << np.uint32(8 * lane)
+            fields = [b & 7, (b >> 3) & 7, b >> 6]
+            pos = (0, 2, 1, 3).index(lane)
+            for sel, field in zip(selectors(x), fields):
+                nib = (sel >> np.uint32(4 * pos)) & np.uint32(15)
+                assert np.array_equal(nib, field)
+
+
+@pytest.mark.parametrize("r,k,L", SHAPES + [(2, 8, 17), (1, 1, 1),
+                                            (55, 200, 333)])
+def test_prmt_emulation_matches_reference(r, k, L):
     mat, chunks = _case(r, k, L, seed=11 + L)
-    tables = kernel.nibble_tables(mat)
-    assert tables.shape == (r, k, 32) and tables.dtype == np.uint8
-    assert np.array_equal(emulate_cuda_kernel(tables, chunks),
+    assert np.array_equal(emulate_cuda_kernel(kernel.prmt_tables(mat), chunks),
                           ref_gf256.host_apply(mat, chunks))
 
 
-def test_nibble_emulation_on_decode_matrix():
-    mat, surv = _decode_case(8, 4, (1, 2, 10), 4099, seed=3)
+@pytest.mark.parametrize("lost", [(0,), (1, 5), (0, 2, 9), (3, 4, 8, 11),
+                                  (1, 2, 10)])
+def test_prmt_emulation_on_decode_matrices(lost):
+    mat, surv = _decode_case(8, 4, lost, 4099, seed=3 + len(lost))
+    assert np.array_equal(emulate_cuda_kernel(kernel.prmt_tables(mat), surv),
+                          ref_gf256.host_apply(mat, surv))
+
+
+def test_prmt_emulation_matches_pallas_interpret():
+    mat, chunks = _case(4, 8, 1000, seed=17)
+    bm = jnp.asarray(ref_gf256.expand_to_bitmatrix(mat), jnp.int8)
+    want = np.asarray(ref_kernel._apply_bitmatrix_pallas(
+        bm, jnp.asarray(chunks), interpret=True))
     assert np.array_equal(
-        emulate_cuda_kernel(kernel.nibble_tables(mat), surv),
-        ref_gf256.host_apply(mat, surv))
+        emulate_cuda_kernel(kernel.prmt_tables(mat), chunks, lanes=32), want)
 
 
 def test_from_reference_matrix_operands():
@@ -109,7 +181,7 @@ def test_from_reference_matrix_operands():
     ops = kernel.from_reference_matrix(mat, "cpu")
     assert np.array_equal(ops.mat, mat)
     assert ops.tables.device.type == "cpu"
-    assert np.array_equal(ops.tables.numpy(), kernel.nibble_tables(mat))
+    assert np.array_equal(ops.tables.numpy(), kernel.prmt_tables(mat))
     assert np.array_equal(ops.bitmat.numpy(),
                           ref_gf256.expand_to_bitmatrix(mat))
     with pytest.raises(ValueError):

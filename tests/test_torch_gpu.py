@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from ceph_tpu_torch.ec import gf256, kernel
+from ceph_tpu_torch.osd.ec_queue import LANE_BUCKETS
 
 pytestmark = pytest.mark.gpu
 
@@ -153,8 +154,9 @@ def test_queue_device_failure_reaches_callers_on_card(cuda, monkeypatch,
 
 @pytest.mark.parametrize("cfg", kernel.TUNE_SPACE,
                          ids=lambda c: "t%d_l%d_r%d" % c)
-@pytest.mark.parametrize("k,r,L", [(8, 4, 1 << 20), (8, 4, 333),
-                                   (6, 3, 4097), (200, 50, 999)])
+@pytest.mark.parametrize("k,r,L", [(8, 4, n) for n in LANE_BUCKETS] + [
+    (8, 4, 333), (8, 4, (1 << 20) + 5), (8, 1, 65536), (8, 2, 65536),
+    (6, 3, 4097), (200, 50, 999), (128, 9, 4099)])
 def test_every_variant_matches_plain_on_card(cuda, cfg, k, r, L):
     rng = np.random.default_rng(k + r + L)
     mat = rng.integers(0, 256, (r, k), dtype=np.uint8)
@@ -168,6 +170,32 @@ def test_every_variant_matches_plain_on_card(cuda, cfg, k, r, L):
     total = kernel.gf_apply_checksum(ops, data, config=cfg)
     assert int(total) == int(kernel.gf_apply_checksum_plain(ops.bitmat,
                                                             data))
+
+
+@pytest.mark.parametrize("cfg", kernel.TUNE_SPACE,
+                         ids=lambda c: "t%d_l%d_r%d" % c)
+@pytest.mark.parametrize("ld,start,width", [(100000, 16, 65536),
+                                            (100000, 3, 50001),
+                                            (100003, 0, 40000)])
+def test_every_variant_on_windows_on_card(cuda, cfg, ld, start, width):
+    """Windows of wider buffers, in and out: 16-byte aligned strided rows
+    take the 16-byte path, an odd offset or an odd stride the byte
+    path; the bytes around the output window stay untouched."""
+    rng = np.random.default_rng(ld + start)
+    mat = gf256.rs_vandermonde_matrix(8, 4)[8:]
+    ops = kernel.from_reference_matrix(mat, cuda)
+    big = torch.from_numpy(
+        rng.integers(0, 256, (8, ld), dtype=np.uint8)).to(cuda)
+    seg = big[:, start:start + width]
+    wide = torch.full((4, ld), 7, dtype=torch.uint8, device=cuda)
+    kernel.gf_apply(ops, seg, out=wide[:, start:start + width], config=cfg)
+    want = kernel.gf_apply_plain(ops.bitmat, seg)
+    torch.cuda.synchronize()
+    assert torch.equal(wide[:, start:start + width], want)
+    assert bool((wide[:, :start] == 7).all()) and \
+        bool((wide[:, start + width:] == 7).all())
+    assert int(kernel.gf_apply_checksum(ops, seg, config=cfg)) == int(
+        kernel.gf_apply_checksum_plain(ops.bitmat, seg))
 
 
 @pytest.mark.parametrize("cfg", kernel.TUNE_SPACE,
