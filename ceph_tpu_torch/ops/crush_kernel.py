@@ -21,9 +21,9 @@ Three engines compute the same placements:
     (``map_firstn``/``map_indep``: masked rounds over the shrinking set of
     unresolved lanes; the native C host library is not ported).
   * ``"device"`` on CUDA: ``crush_map``, a hand-written kernel
-    (``csrc/crush_map.cu``) that runs mapper.c's loops with one thread per
-    input; it replaces the JAX package's jitted descent
-    (``JaxEngine._build``).  ``crush_straw2_winners`` replaces its winner
+    (``csrc/crush_map.cu``) that runs mapper.c's loops with a tile of
+    ``lanes`` threads per input (``choose_lanes``); it replaces the JAX
+    package's jitted descent (``JaxEngine._build``).  ``crush_straw2_winners`` replaces its winner
     grid (``_get_winners_fn``).
   * ``"device"`` on ``device="cpu"``: the kernels' plain torch versions
     (``crush_map_plain``, ``straw2_winners_plain``), which the CPU tests
@@ -43,7 +43,7 @@ from __future__ import annotations
 import ctypes
 import itertools
 import threading
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -772,11 +772,15 @@ _lib = None
 MAX_LEVELS = 12
 MAX_REP = 32
 MAX_UNIFORM = 256
+#: the lanes per input the descent kernel is built for (kLaneVariants)
+LANE_VARIANTS = (4, 8, 16)
 
 M32 = 0xFFFFFFFF
+M64 = 0xFFFFFFFFFFFFFFFF
 _LN_ONE = 0x1000000000000      # 2^48: crush_ln(0xffff)
 _UNDEF = -(2**63)              # int64 sentinel of an open slot
 _PLAIN_CHUNK = 65536           # lanes per pass of the plain descent
+_INT_MAX = 2**31 - 1           # a tile lane's index before its first item
 
 
 def _library():
@@ -789,8 +793,8 @@ def _library():
             vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             lib.crush_map.argtypes = [
                 vp, ci, ci, ci, ci, ci, ci, ci, ci,    # levels .. leaf_tries
-                vp, vp, vp, ci, vp,                    # topo .. ln_tables
-                vp, cll, vp, ci, vp]                   # xs .. stream
+                vp, vp, vp, vp, ci, vp,                # topo .. ln_tables
+                vp, cll, vp, ci, ci, vp]               # xs .. stream
             lib.crush_map.restype = ci
             lib.crush_straw2_winners.argtypes = [
                 vp, vp, ci, vp, vp, cll, vp, ci, vp, vp]
@@ -805,6 +809,14 @@ def _library():
                 if got != want:
                     raise RuntimeError(f"csrc/crush_map.cu {fn}() = {got}, "
                                        f"the wrapper expects {want}")
+            buf = (ci * 8)()
+            lib.crush_lane_variants.argtypes = [vp, ci]
+            lib.crush_lane_variants.restype = ci
+            n = lib.crush_lane_variants(ctypes.addressof(buf), len(buf))
+            if tuple(buf[:n]) != LANE_VARIANTS:
+                raise RuntimeError(f"csrc/crush_map.cu builds lanes "
+                                   f"{tuple(buf[:n])}, the wrapper expects "
+                                   f"{LANE_VARIANTS}")
             _lib = lib
         return _lib
 
@@ -842,6 +854,130 @@ def _ln_u16(device: torch.device) -> torch.Tensor:
     return t
 
 
+def _u32_weights(weights) -> np.ndarray:
+    w = np.asarray(weights, np.int64)
+    if w.size and int(w.max()) > M32:
+        raise ValueError(f"a straw2 weight of {int(w.max()):#x}: the map "
+                         f"format carries weights below 2^32")
+    return w
+
+
+def straw2_recips(weights: np.ndarray) -> np.ndarray:
+    """floor((2^64 - 1) / w) per weight as uint64, 0 where w <= 0: the
+    reciprocals with which the kernels divide (``recip_quotient``).
+    Raises ValueError on a weight of 2^32 or more, which the map format
+    (u32 weights) cannot carry."""
+    w = _u32_weights(weights)
+    out = np.zeros(w.shape, np.uint64)
+    pos = w > 0
+    out[pos] = np.uint64(M64) // w[pos].astype(np.uint64)
+    return out
+
+
+class SegmentWeights(NamedTuple):
+    """A segment's bucket item weights on one device, flattened level by
+    level (int64 [W]), and their ``straw2_recips`` (int64 [W] holding the
+    uint64 bits), as ``DeviceEngine.weights`` uploads them."""
+    weights: torch.Tensor
+    recips: torch.Tensor
+
+
+def choose_lanes(n_inputs: int, thread_slots: int,
+                 widths: Sequence[int]) -> int:
+    """Lanes per input for one descent launch over straw2 rows of
+    ``widths`` (one per straw2 level, ``DeviceEngine.straw2_widths``) on
+    a card that holds ``thread_slots`` threads at once (the function
+    ``thread_slots`` reads it).
+
+    The most lanes of LANE_VARIANTS that leave no lane idle at the
+    narrowest row and give each lane at least two items of the mean row
+    (its two hash chains), and at least the fewest built: a warp then
+    holds fewer inputs, so it waits less on one input's retries, and the
+    lanes' repeated work per level (the reduction's shuffles, the
+    bookkeeping) stays small.  If that leaves fewer threads (inputs x
+    lanes) than the card's thread slots, as at a pool's 16-32 Ki PGs, the
+    fewest more lanes that fill them (else the most): filling the card
+    outweighs idle lanes."""
+    fit = LANE_VARIANTS[0]
+    if widths:
+        fit = max([fit] + [g for g in LANE_VARIANTS if g <= min(widths)
+                           and 2 * g <= sum(widths) / len(widths)])
+    for g in LANE_VARIANTS:
+        if g >= fit and n_inputs * g >= thread_slots:
+            return g
+    return LANE_VARIANTS[-1]
+
+
+_thread_slots: Dict[int, int] = {}
+
+
+def thread_slots(device: torch.device) -> int:
+    """Threads resident at once on the CUDA ``device``: its SMs times the
+    threads one SM holds."""
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    n = _thread_slots.get(idx)
+    if n is None:
+        props = torch.cuda.get_device_properties(idx)
+        n = _thread_slots[idx] = (props.multi_processor_count
+                                  * props.max_threads_per_multi_processor)
+    return n
+
+
+# -- a model of the kernels' arithmetic, for the tests ---------------------
+
+def umulhi64(a, b) -> np.ndarray:
+    """The high 64 bits of a * b (CUDA's ``__umul64hi``), from 32-bit
+    halves in numpy uint64."""
+    a = np.asarray(a, np.uint64)
+    b = np.asarray(b, np.uint64)
+    m32, s32 = np.uint64(M32), np.uint64(32)
+    a0, a1 = a & m32, a >> s32
+    b0, b1 = b & m32, b >> s32
+    p01, p10 = a0 * b1, a1 * b0
+    mid = ((a0 * b0) >> s32) + (p01 & m32) + (p10 & m32)
+    return a1 * b1 + (p01 >> s32) + (p10 >> s32) + (mid >> s32)
+
+
+def recip_quotient(n, w, m) -> np.ndarray:
+    """The kernels' n // w for n < 2^64, w >= 1, m = straw2_recips(w):
+    umulhi(n, m) is the quotient or one less; the remainder fixes it."""
+    n = np.asarray(n, np.uint64)
+    w = np.asarray(w, np.uint64)
+    q = umulhi64(n, m)
+    return q + (n - q * w >= w).astype(np.uint64)
+
+
+def tile_first_max(draws: Sequence[int], lanes: int) -> int:
+    """The index a tile of ``lanes`` lanes picks in csrc/crush_map.cu's
+    straw2_index: lane j scans items j, j+lanes, ... two at a time,
+    keeping its first maximum, then a butterfly of exchanges keeps the
+    larger draw, the lower index on equal draws (a lane with no item
+    holds INT_MAX).  Every lane must end with the same index."""
+    size = len(draws)
+    best = []
+    for j in range(lanes):
+        b, bd = _INT_MAX, S64_MIN
+        for i in range(j, size, lanes):
+            if b == _INT_MAX or draws[i] > bd:
+                b, bd = i, draws[i]
+        best.append((b, bd))
+    off = lanes // 2
+    while off:
+        nxt = []
+        for j, (b, bd) in enumerate(best):
+            ob, obd = best[j ^ off]
+            nxt.append((ob, obd) if obd > bd or (obd == bd and ob < b)
+                       else (b, bd))
+        best = nxt
+        off //= 2
+    idx = {b for b, _ in best}
+    if len(idx) != 1:
+        raise AssertionError(f"the tile's lanes disagree: {idx}")
+    b = idx.pop()
+    return 0 if b == _INT_MAX else b
+
+
 class DeviceEngine:
     """One segment's topology on one device.
 
@@ -849,7 +985,9 @@ class DeviceEngine:
     [n, imax], row map, sizes, bucket ids, int64); ``topo`` is the
     kernel's packed int32 form of the same, with ``desc`` the 7 ints per
     level (items, rows, sizes and ids offsets into ``topo``, the weights
-    offset, the row width, the uniform flag) that csrc/crush_map.cu reads.
+    offset, the row width, the uniform flag) that csrc/crush_map.cu reads;
+    ``straw2_widths`` the row width of each straw2 level, which
+    ``choose_lanes`` reads.
     Raises ValueError for a segment the kernel cannot take (more than
     MAX_LEVELS levels, a uniform bucket wider than MAX_UNIFORM)."""
 
@@ -888,12 +1026,18 @@ class DeviceEngine:
         self.topo = torch.from_numpy(
             np.concatenate(parts).astype(np.int32)).to(device)
         self.woffsets = np.cumsum([0] + [n * i for n, i in self.shapes])
+        self.straw2_widths = [i for (_, i), u in zip(self.shapes,
+                                                     self.uniform) if not u]
 
-    def weights(self, seg: Segment) -> torch.Tensor:
-        """The segment's bucket item weights, flattened level by level."""
-        return torch.from_numpy(np.concatenate(
-            [lv.weights.reshape(-1) for lv in seg.outer + seg.leaf]
-        ).astype(np.int64)).to(self.device)
+    def weights(self, seg: Segment) -> SegmentWeights:
+        """The segment's bucket item weights, flattened level by level,
+        with their reciprocals: one upload.  Raises ValueError on a weight
+        of 2^32 or more (``straw2_recips``)."""
+        w = np.concatenate([lv.weights.reshape(-1)
+                            for lv in seg.outer + seg.leaf]).astype(np.int64)
+        both = torch.from_numpy(np.concatenate(
+            [w, straw2_recips(w).view(np.int64)])).to(self.device)
+        return SegmentWeights(both[:w.size], both[w.size:])
 
     def run(self, seg: Segment, xs: torch.Tensor, numrep: int,
             out_size: int, weights_vec: Sequence[int]
@@ -914,19 +1058,23 @@ class DeviceEngine:
 
 
 def crush_map(eng: DeviceEngine, xs: torch.Tensor, numrep: int,
-              out_size: int, weights: torch.Tensor,
+              out_size: int, weights: SegmentWeights,
               osd_weights: torch.Tensor,
-              work: Optional[Dict[str, int]] = None) -> torch.Tensor:
+              work: Optional[Dict[str, int]] = None,
+              lanes: Optional[int] = None) -> torch.Tensor:
     """One segment's descent for inputs ``xs`` on the engine's device:
     packed int32 [X, numrep + 1] (osds padded with -1, then the count)
     for firstn, [X, out_size] with CRUSH_ITEM_NONE holes for indep.
 
-    ``weights`` are the segment's bucket item weights (``eng.weights``),
-    ``osd_weights`` the reweight vector, both int64 on the device.  A
-    CUDA tensor launches the kernel of csrc/crush_map.cu or raises; a
-    CPU tensor runs the plain version (``work``, when given, collects the
-    plain version's operation counts)."""
-    for name, t in (("xs", xs), ("weights", weights),
+    ``weights`` are the segment's bucket item weights and reciprocals
+    (``eng.weights``), ``osd_weights`` the reweight vector, int64 on the
+    device.  A CUDA tensor launches the kernel of csrc/crush_map.cu with
+    ``lanes`` lanes per input (None: ``choose_lanes``; a count the kernel
+    is not built for is refused by the launch) or raises; a CPU tensor
+    runs the plain version (``work``, when given, collects the plain
+    version's operation counts)."""
+    for name, t in (("xs", xs), ("weights", weights.weights),
+                    ("recips", weights.recips),
                     ("osd_weights", osd_weights)):
         if t.dtype != torch.int64 or t.dim() != 1:
             raise ValueError(f"{name} must be 1-d int64, got {t.dtype} "
@@ -934,9 +1082,11 @@ def crush_map(eng: DeviceEngine, xs: torch.Tensor, numrep: int,
         if t.device != eng.device:
             raise ValueError(f"{name} on {t.device}, engine on "
                              f"{eng.device}")
-    if weights.shape[0] != eng.woffsets[-1]:
-        raise ValueError(f"weights has {weights.shape[0]} entries, the "
-                         f"engine's levels {eng.woffsets[-1]}")
+    for name, t in (("weights", weights.weights),
+                    ("recips", weights.recips)):
+        if t.shape[0] != eng.woffsets[-1]:
+            raise ValueError(f"{name} has {t.shape[0]} entries, the "
+                             f"engine's levels {eng.woffsets[-1]}")
     if eng.firstn and out_size != numrep:
         raise ValueError("firstn takes out_size == numrep")
     if not 1 <= out_size <= MAX_REP:
@@ -953,8 +1103,11 @@ def crush_map(eng: DeviceEngine, xs: torch.Tensor, numrep: int,
     if X == 0:
         return out
     xs = xs.contiguous()
-    weights = weights.contiguous()
+    wts = weights.weights.contiguous()
+    recips = weights.recips.contiguous()
     osd_weights = osd_weights.contiguous()
+    if lanes is None:
+        lanes = choose_lanes(X, thread_slots(xs.device), eng.straw2_widths)
     lib = _library()
     tables = _ln_tables(xs.device)
     with torch.cuda.device(xs.device):
@@ -962,9 +1115,10 @@ def crush_map(eng: DeviceEngine, xs: torch.Tensor, numrep: int,
         rc = lib.crush_map(
             eng.desc.ctypes.data, eng.n_outer, eng.n_leaf, int(eng.firstn),
             int(eng.recurse), numrep, out_size, eng.choose_tries,
-            eng.leaf_tries, eng.topo.data_ptr(), weights.data_ptr(),
-            osd_weights.data_ptr(), osd_weights.shape[0],
-            tables.data_ptr(), xs.data_ptr(), X, out.data_ptr(), ld, stream)
+            eng.leaf_tries, eng.topo.data_ptr(), wts.data_ptr(),
+            recips.data_ptr(), osd_weights.data_ptr(),
+            osd_weights.shape[0], tables.data_ptr(), xs.data_ptr(), X,
+            out.data_ptr(), ld, int(lanes), stream)
     _check_launch(lib, rc, "crush_map")
     global crush_map_launches
     with _count_lock:
@@ -1217,7 +1371,7 @@ def _plain_indep(eng, xs, numrep, out_size, wflat, osd_w, ln_tab, work):
 
 
 def crush_map_plain(eng: DeviceEngine, xs: torch.Tensor, numrep: int,
-                    out_size: int, weights: torch.Tensor,
+                    out_size: int, weights: SegmentWeights,
                     osd_weights: torch.Tensor,
                     work: Optional[Dict[str, int]] = None) -> torch.Tensor:
     """Plain torch version of ``crush_map``, on xs's device: the same
@@ -1225,8 +1379,11 @@ def crush_map_plain(eng: DeviceEngine, xs: torch.Tensor, numrep: int,
     tries over the lanes still open, in mapper.c's (rep, ftotal) order,
     with crush_ln as a gather into the 64 Ki-entry table; lanes go in
     passes of 65536.  ``work``, when given, collects the operations the
-    lanes needed (straw2 draws, perm-choose hashes, is_out hashes)."""
+    lanes needed (straw2 draws, perm-choose hashes, is_out hashes).  It
+    divides by ``weights.weights`` with torch's floor division and reads
+    no reciprocal."""
     ln_tab = _ln_u16(xs.device)
+    weights = weights.weights
     outs = []
     for s in range(0, xs.shape[0], _PLAIN_CHUNK):
         chunk = xs[s:s + _PLAIN_CHUNK] & M32
@@ -1326,7 +1483,9 @@ def crush_straw2_winners(items: torch.Tensor, weights: torch.Tensor,
     """[X, R] int64 winning item ids of one straw2 bucket (items/weights
     [B] int64) for inputs xs [X] and draw indices rs [R] (int64), on
     their device.  A CUDA tensor launches the kernel of
-    csrc/crush_map.cu or raises; a CPU tensor runs the plain version."""
+    csrc/crush_map.cu (one thread per (x, r); each block computes the
+    weights' reciprocals into shared memory first) or raises; a CPU
+    tensor runs the plain version."""
     for name, t in (("items", items), ("weights", weights), ("xs", xs),
                     ("rs", rs)):
         if t.dtype != torch.int64 or t.dim() != 1:
@@ -1393,8 +1552,9 @@ def straw2_winners(items, weights, xs, rs,
     """Straw2 winner grid: items/weights [B] bucket contents, xs [X]
     inputs, rs [R] draw indices -> [X, R] winning item ids (numpy),
     computed on ``device`` (the kernel on CUDA, the plain version on
-    "cpu")."""
+    "cpu").  Raises ValueError on a weight of 2^32 or more."""
     dev = resolve_device(device)
+    weights = _u32_weights(weights)
 
     def t(a):
         return torch.from_numpy(

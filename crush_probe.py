@@ -4,6 +4,7 @@ subcommand each.
 
     python3 crush_probe.py host-engines [--sizes 16,64,256,1024,4096]
     python3 crush_probe.py sass-ops
+    python3 crush_probe.py crush-times
     python3 crush_probe.py gf-ops
     python3 crush_probe.py gf-times
 
@@ -17,18 +18,30 @@ the median of repeated calls through the entry point; the two results
 must be equal.  It runs on any host and times the host's CPU, not a card.
 
 ``sass-ops`` builds ``csrc/crush_map.cu`` (nvcc, sm_90a), disassembles
-the library with ``cuobjdump -sass`` and counts the instructions that
-one straw2 draw issues: the loop body of ``crush_straw2_winners`` (one
-draw per item) along the path a drawn item with a nonzero weight takes,
-plus the 64-bit division routine it calls.  It splits the count by the
-pipe that executes each instruction on Hopper, and prints it as JSON.
-It needs the CUDA toolkit, not a card.
+the library with ``cuobjdump -sass`` and, for ``crush_straw2_winners``
+and every instantiation of the descent kernel, counts the instructions
+that one straw2 draw issues along the path of a drawn item with a
+nonzero weight, split by the pipe that executes each instruction on
+Hopper, with the CALLs in the item loops (none: no emulated division)
+and nvcc's registers and stack frame.  It prints JSON lines.  It needs
+the CUDA toolkit, not a card.  What a draw issues is a diagnostic: the
+CRUSH kernels' bounds count the hash's operations (chip_smoke.py).
 
-``gf-ops`` does the same for ``csrc/gf_apply.cu``: for every TUNE_SPACE
-variant it counts, by pipe, the instructions that the input-row loop of
-the 16-byte-load path issues per 4-lane word, for each number of output
-rows the loop serves, and the floor those instructions set at the encode
-window; with nvcc's ``-Xptxas -v`` registers and spills.  It needs the
+``crush-times`` times every lane variant of the descent kernel on the
+card, in turns, on 1M inputs for each of the chip smoke test's three rules
+and on its OSDMap pools' PGs, each variant held bit for bit against the
+first; then the SM clock under load.  It uses only the kernel module's
+public entry points, so a copy of this file run from the root of an older
+checkout times that checkout's kernel (at its wrapper's own choice where
+it has no lane variants); each row's ``sha256`` of the packed result lets
+the two runs be held against each other.
+
+``gf-ops`` does for ``csrc/gf_apply.cu`` what ``sass-ops`` does for the
+CRUSH kernels: for every TUNE_SPACE variant it counts, by pipe, the
+instructions that the input-row loop of the 16-byte-load path issues per
+4-lane word, for each number of output rows the loop serves, and the
+floor those instructions set at the encode window; with nvcc's
+``-Xptxas -v`` registers and spills.  It needs the
 toolkit, not a card.
 
 ``gf-times`` times every TUNE_SPACE variant of ``gf_apply`` and
@@ -42,6 +55,7 @@ times that checkout's kernel.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import re
@@ -164,14 +178,22 @@ def _subroutine(insns, addr):
         addr += 16
 
 
-def loop_paths(insns, start: int, stop: int):
+def loop_paths(insns, start: int, stop: int, out_of_line: bool = False):
     """Every path through one iteration of the loop whose body runs from
     ``start`` to the backward branch at ``stop``: each a list of the
-    instructions it issues, a called routine's included."""
+    instructions it issues, a called routine's included.  A branch that
+    leaves [start, stop] is refused, unless ``out_of_line``: then the
+    walk follows it (nvcc places cold blocks after the loop and branches
+    back), a branch back to ``start`` also ends an iteration, and a path
+    that reaches an EXIT or RET has left the loop and is dropped."""
     paths = []
 
-    def walk(addr, acc):
+    def walk(addr, acc, seen):
         while True:
+            if addr in seen:
+                raise ValueError(f"{addr:#x} twice in one iteration of the "
+                                 f"loop at {start:#x}")
+            seen = seen | {addr}
             text, raw = insns[addr]
             op = text.split()[0].split(".")[0]
             acc = acc + [text]
@@ -180,19 +202,24 @@ def loop_paths(insns, start: int, stop: int):
                 return
             if op == "BRA":
                 target = _target(text)
-                if not addr < target <= stop:
+                if not out_of_line and not addr < target <= stop:
                     raise ValueError(f"branch at {addr:#x} leaves the loop")
                 if raw.startswith("@"):
-                    walk(addr + 16, acc)
+                    walk(addr + 16, acc, seen)
+                if out_of_line and target == start:
+                    paths.append(acc)
+                    return
                 addr = target
                 continue
             if op == "CALL":
                 acc = acc + _subroutine(insns, _target(text))
             elif op in ("EXIT", "RET"):
+                if out_of_line:
+                    return
                 raise ValueError(f"{op} at {addr:#x} inside the loop")
             addr += 16
 
-    walk(start, [])
+    walk(start, [], frozenset())
     return paths
 
 
@@ -214,36 +241,84 @@ def sm_clocks(by) -> float:
     return max(by[p] / rate for p, rate in SM_RATES.items())
 
 
-def draw_cost(sass: str):
+#: straw2_index (csrc/crush_map.cu) draws two items per iteration of its
+#: item loop, so that two hash chains interleave
+DRAWS_PER_ITERATION = 2
+#: a loop body with at least this many right shifts holds a hash (hash32_3
+#: shifts right 30 times); the collision and table loops shift far less
+_HASH_SHIFTS = 16
+_MAP_KERNEL = re.compile(r"crush_map_kernelILb([01])ELi(\d+)ELb([01])E")
+
+
+def draw_loops(insns):
+    """(start, stop) of each item loop of a straw2 choice: the innermost
+    backward branches whose bodies read shared memory (the ln tables) and
+    hold a hash's run of right shifts.  A branch back from a block placed
+    after a loop into its middle is no loop: its range holds the loop's
+    own backward branch, which crosses the range's start."""
+    back = {a: _target(t) for a, (t, _) in insns.items()
+            if t.split()[0].split(".")[0] == "BRA" and _target(t) < a}
+    loops = []
+    for a, t in back.items():
+        body = [insns[b][0] for b in range(t, a + 16, 16) if b in insns]
+        if (any(x.startswith("LDS") for x in body)
+                and sum(x.startswith("SHF.R") for x in body)
+                >= _HASH_SHIFTS
+                and not any(t < b < a and bt < t for b, bt in back.items())):
+            loops.append((t, a))
+    return [lp for lp in loops
+            if not any(o != lp and lp[0] <= o[0] and o[1] <= lp[1]
+                       for o in loops)]
+
+
+def draw_cost(sass: str, function: str = "crush_straw2_winners_kernel"):
     """Instructions per drawn item (nonzero weight) of the straw2 choice
-    as compiled, from ``crush_straw2_winners``' item loop.  The loop's
-    paths that call the 64-bit division routine are the draws (a zero
-    weight skips the draw; the quotient of a negative 49-bit ln and a
-    weight never fits the 32-bit shortcut).  They differ only in
-    crush_ln's normalisation block, which runs when the 16-bit hash + 1
-    is below 0x8000, half of all hash values: the cost is their mean."""
+    as compiled in the first kernel whose name holds ``function``: its
+    item loops (``draw_loops``) draw DRAWS_PER_ITERATION items per
+    iteration, each reading the ln tables the same number of times, so a
+    path's draws are its shared-memory loads over those of a path that
+    draws every item.  The paths that draw every item differ in
+    crush_ln's normalisation block (taken when the 16-bit hash + 1 is
+    below 0x8000, half of all hash values) and in the compare: the cost
+    is their mean, per draw.  ``calls_in_loop`` counts the CALLs in the
+    loops' bodies (an emulated division would be one)."""
     funcs = functions(sass)
-    name = next(f for f in funcs if "crush_straw2_winners_kernel" in f)
+    name = next(f for f in funcs if function in f)
     insns = funcs[name]
-    # the item loop: the backward branch whose body calls the division
-    # (the other loop stages the crush_ln tables in shared memory)
-    back = [(a, _target(t)) for a, (t, _) in insns.items()
-            if t.split()[0] == "BRA" and _target(t) < a
-            and any(insns[b][0].startswith("CALL")
-                    for b in range(_target(t), a, 16))]
-    if len(back) != 1:
-        raise ValueError(f"{len(back)} item loops in {name}")
-    stop, start = back[0]
-    paths = loop_paths(insns, start, stop)
-    draws = [count(p) for p in paths
-             if any(t.startswith("CALL") for t in p)]
-    if not draws:
-        raise ValueError("no path of the item loop calls the division")
-    mean = {k: statistics.mean(d[k] for d in draws) for k in draws[0]}
-    return {"function": name, "loop": [hex(start), hex(stop)],
-            "paths": [count(p) for p in paths], "draw_paths": draws,
-            "per_draw": mean, "sm_clocks_per_draw": sm_clocks(mean),
+    loops = draw_loops(insns)
+    if not loops:
+        raise ValueError(f"no straw2 item loop in {name}")
+    full, all_paths, calls = [], [], 0
+    for start, stop in loops:
+        calls += sum(insns[b][0].startswith("CALL")
+                     for b in range(start, stop + 16, 16) if b in insns)
+        paths = loop_paths(insns, start, stop, out_of_line=True)
+        lds = [sum(t.startswith("LDS") for t in p) for p in paths]
+        if max(lds) % DRAWS_PER_ITERATION:
+            raise ValueError(f"{max(lds)} shared loads in the loop at "
+                             f"{start:#x} of {name}: not "
+                             f"{DRAWS_PER_ITERATION} draws' worth")
+        all_paths += [count(p) for p in paths]
+        full += [{k: v / DRAWS_PER_ITERATION for k, v in count(p).items()}
+                 for p, n in zip(paths, lds) if n == max(lds)]
+    mean = {k: statistics.mean(d[k] for d in full) for k in full[0]}
+    return {"function": name,
+            "loops": [[hex(a), hex(b)] for a, b in loops],
+            "paths": all_paths, "draw_paths": full, "per_draw": mean,
+            "sm_clocks_per_draw": sm_clocks(mean), "calls_in_loop": calls,
             "sm_rates": SM_RATES}
+
+
+def map_kernels(sass: str):
+    """{(firstn, lanes, uniform): function name} of crush_map_kernel's
+    instantiations in the SASS."""
+    out = {}
+    for name in functions(sass):
+        m = _MAP_KERNEL.search(name)
+        if m:
+            out[bool(int(m.group(1))), int(m.group(2)),
+                bool(int(m.group(3)))] = name
+    return out
 
 
 # ------------------------------------------------------------ gf_apply ops
@@ -327,8 +402,8 @@ def gf_floor_ms(cost, k: int, r: int, L: int, sm_clocks_per_s: float):
 
 
 def ptxas_report(text: str):
-    """{function: {registers, spill_stores, spill_loads}} from nvcc's
-    ``-Xptxas -v`` output."""
+    """{function: {registers, stack_frame, spill_stores, spill_loads}}
+    from nvcc's ``-Xptxas -v`` output (bytes for all but registers)."""
     out, cur = {}, None
     for line in text.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties "
@@ -338,10 +413,11 @@ def ptxas_report(text: str):
             continue
         if cur is None:
             continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
         if m:
-            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+            (cur["stack_frame"], cur["spill_stores"],
+             cur["spill_loads"]) = map(int, m.groups())
         m = re.search(r"Used (\d+) registers", line)
         if m:
             cur["registers"] = int(m.group(1))
@@ -475,15 +551,124 @@ def disassemble(lib_path: str) -> str:
                           text=True, check=True).stdout
 
 
+def crush_report(built):
+    """[(label, draw cost, ptxas)] for ``crush_straw2_winners`` and every
+    instantiation of the descent kernel in a built crush_map library:
+    ``draw_cost`` of its item loops and nvcc's registers, stack frame
+    and spills for it."""
+    sass = disassemble(built.path)
+    regs = ptxas_report(built.ptxas)
+    kernels = [("crush_straw2_winners", "crush_straw2_winners_kernel")]
+    kernels += [(f"crush_map firstn={int(f)} lanes={g} uniform={int(u)}", n)
+                for (f, g, u), n in sorted(map_kernels(sass).items())]
+    out = []
+    for label, name in kernels:
+        cost = draw_cost(sass, name)
+        out.append((label, cost, regs.get(cost["function"], {})))
+    return out
+
+
 def sass_ops():
     from ceph_tpu_torch.common.cuda_build import build
-    built = build("crush_map")
-    cost = draw_cost(disassemble(built.path))
-    for p in cost["paths"]:
-        print(f"item-loop path: {p}")
-    print(f"per draw (mean of the {len(cost['draw_paths'])} draw paths): "
-          f"{cost['per_draw']}; {cost['sm_clocks_per_draw']:.4f} SM clocks")
-    print(json.dumps(cost))
+    for label, cost, ptxas in crush_report(build("crush_map")):
+        print(f"{label}: {len(cost['loops'])} item loops, CALLs in them "
+              f"{cost['calls_in_loop']}; per draw {cost['per_draw']}; "
+              f"{cost['sm_clocks_per_draw']:.4f} SM clocks; ptxas {ptxas}")
+        print(json.dumps({"kernel": label, "ptxas": ptxas} | {
+            k: cost[k] for k in ("function", "loops", "per_draw",
+                                 "sm_clocks_per_draw", "calls_in_loop")}))
+
+
+# ------------------------------------------------------------ CRUSH times
+
+def crush_times(torch, cases, reps: int = 7):
+    """Median time of every lane variant of ``crush_map`` on each case,
+    in turns: variants ascending, then descending; each row's times are
+    the means of its two turns.  A tree whose kernel module has no lane
+    variants (an older checkout's) is timed at its wrapper's own choice,
+    ``"default"``.  A case is a dict with the launch's arguments (eng,
+    xs, numrep, out_size, weights, osd_w), its ``name``, and ``want``, the
+    packed result every variant must equal (None: the first variant's);
+    a row's ``sha256`` digests that result, so runs of two trees can be
+    held against each other."""
+    from chip_smoke import median_ms
+    from ceph_tpu_torch.ops import crush_kernel as ck
+    rows = []
+    for case in cases:
+        args = [case[k] for k in ("eng", "xs", "numrep", "out_size",
+                                  "weights", "osd_w")]
+        fns = {str(g): (lambda g=g: ck.crush_map(*args, lanes=g))
+               for g in getattr(ck, "LANE_VARIANTS", ())}
+        fns = fns or {"default": lambda: ck.crush_map(*args)}
+        want = case.get("want")
+        if want is None:
+            want = next(iter(fns.values()))()
+        for key, fn in fns.items():
+            if not torch.equal(fn().to(want.dtype), want):
+                raise ValueError(f"{case['name']}: lanes {key} differ from "
+                                 f"the reference result")
+        order = list(fns)
+        times = {k: [] for k in order}
+        for k in order + order[::-1]:
+            times[k].append(median_ms(torch, fns[k], reps))
+        rows.append({"case": case["name"], "inputs": int(args[1].shape[0]),
+                     "sha256": hashlib.sha256(
+                         want.to(torch.int32).cpu().numpy().tobytes()
+                     ).hexdigest()[:16],
+                     "ms": {k: statistics.mean(v) for k, v in times.items()},
+                     "turns": times})
+    return rows
+
+
+def crush_cases(torch, dev):
+    """The chip smoke test's CRUSH cases: 1M inputs for each of its three
+    rules on 1024 OSDs, and its OSDMap's two pools at their PG counts."""
+    from chip_smoke import CRUSH_N, build_osdmap, crush_maps
+    from ceph_tpu_torch.ops import crush_kernel as ck
+    rules, w = crush_maps()
+    xs = torch.arange(CRUSH_N, dtype=torch.int64, device=dev)
+    osd_w = torch.tensor(w, dtype=torch.int64, device=dev)
+    cases = []
+    for name, m, rule, size in rules:
+        seg = ck.compile_rule(m, rule).segments[0]
+        eng = ck._device_engine(seg, w, dev)
+        cases.append({"name": name, "eng": eng, "xs": xs, "numrep": size,
+                      "out_size": size, "weights": eng.weights(seg),
+                      "osd_w": osd_w})
+    om = build_osdmap()
+    pw = torch.tensor(om.osd_weight, dtype=torch.int64, device=dev)
+    for pid in sorted(om.pools):
+        pool = om.pools[pid]
+        ruleno = om.crush.find_rule(pool.crush_ruleset, pool.type, pool.size)
+        seg = ck.compile_rule(om.crush, ruleno).segments[0]
+        numrep, out_size = ck._seg_numrep(seg, pool.size)
+        eng = ck._device_engine(seg, om.osd_weight, dev)
+        pps = [pool.raw_pg_to_pps(pg) for pg in om.pg_ids(pid)]
+        cases.append({"name": f"pool {om.pool_names[pid]}", "eng": eng,
+                      "xs": torch.tensor(pps, dtype=torch.int64, device=dev),
+                      "numrep": numrep, "out_size": out_size,
+                      "weights": eng.weights(seg), "osd_w": pw})
+    return cases
+
+
+def crush_times_main():
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("crush-times needs a CUDA device")
+    from ceph_tpu_torch.ops import crush_kernel as ck
+    dev = torch.device("cuda")
+    cases = crush_cases(torch, dev)
+    for row, case in zip(crush_times(torch, cases), cases):
+        if hasattr(ck, "choose_lanes"):
+            row["chosen_lanes"] = ck.choose_lanes(
+                row["inputs"], ck.thread_slots(dev),
+                case["eng"].straw2_widths)
+        print(json.dumps(row))
+    c = cases[0]
+    print(json.dumps({"sm_clock_mhz_under_load": sm_clock_under_load(
+        torch, lambda: ck.crush_map(c["eng"], c["xs"], c["numrep"],
+                                    c["out_size"], c["weights"],
+                                    c["osd_w"]))}))
 
 
 def main(argv=None) -> int:
@@ -494,6 +679,7 @@ def main(argv=None) -> int:
     sub.add_parser("sass-ops")
     sub.add_parser("gf-ops")
     sub.add_parser("gf-times")
+    sub.add_parser("crush-times")
     args = ap.parse_args(argv)
     if args.cmd == "host-engines":
         host_engines([int(s) for s in args.sizes.split(",")])
@@ -501,6 +687,8 @@ def main(argv=None) -> int:
         sass_ops()
     elif args.cmd == "gf-ops":
         gf_ops()
+    elif args.cmd == "crush-times":
+        crush_times_main()
     else:
         gf_times_main()
     return 0

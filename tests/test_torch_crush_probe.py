@@ -1,10 +1,11 @@
-"""crush_probe.py's SASS counter on a hand-written listing.
+"""crush_probe.py's SASS counter on hand-written listings.
 
-The listing has the shape ``cuobjdump -sass`` prints for
-``crush_straw2_winners``: a table-staging loop, then an item loop whose
-draw branches around a skipped item, a conditional block and a 32-bit
-division shortcut, and calls a straight-line division routine.  The
-counts are exact.
+The listings have the shape ``cuobjdump -sass`` prints: ``SASS`` a loop
+that branches around blocks and calls a straight-line routine (the path
+walker's cases); ``_draw_sass`` ``crush_straw2_winners``' item loop as
+built with the reciprocal division, two draws per iteration; ``_gf_sass``
+gf_apply's row loop.  The counts are exact.  Also the CRUSH bound's
+operation count (chip_smoke.crush_ops_ms).
 """
 
 import pytest
@@ -75,17 +76,138 @@ def test_loop_paths_follow_branches_and_calls():
     assert "FLO.U32 R2, R3" in longest and "RET.REL.NODEC R14 0x0" in longest
 
 
+def _draw_sass(call=False, ool=False):
+    """``crush_straw2_winners`` as compiled since the reciprocal: a
+    table-staging loop, a collision-style loop (shared loads, one shift),
+    then the item loop, two draws per iteration.  Each draw skips on a
+    zero weight, runs a 32-instruction hash run (16 right shifts), takes
+    crush_ln's normalisation block on half the hashes, reads the ln
+    tables twice and divides by a multiply-high and a compare.  With
+    ``call``, the loop also calls a routine (the emulated division); with
+    ``ool``, the normalisation blocks sit after the kernel's EXIT and
+    branch back, and the loop's first instruction may leave it for the
+    EXIT."""
+    def draw(skip):
+        return (["LDG.E.64.CONSTANT R10, desc[UR4][R12.64]",
+                 "ISETP.GE.AND P2, PT, R10, 0x1, PT", f"@!P2 BRA {skip}"]
+                + ["SHF.R.U32.HI R14, RZ, 0xd, R15"] * 16
+                + ["IADD3 R15, R15, -R14, -R16"] * 8
+                + ["LOP3.LUT R15, R15, R14, RZ, 0x96, !PT"] * 8
+                + ["ISETP.GE.U32.AND P3, PT, R15, 0x8000, PT", "NORM"]
+                + ["FLO.U32 R17, R15", "SHF.L.U32 R15, R15, R17, RZ"]
+                + ["LDS.128 R20, [R18]", "LDS.64 R24, [R19]",
+                   "IMAD.WIDE.U32 R26, R15, R20, RZ",
+                   "IMAD.HI.U32 R27, R28, R29, RZ",
+                   "ISETP.GE.U32.AND P4, PT, R30, R31, PT",
+                   "SEL R32, R33, R34, P4"])
+    body = ["LDC R1, c[0x0][0x28]",
+            "LDG.E.64 R2, desc[UR4][R2.64]", "STS.64 [R5], R2",
+            "@P0 BRA 0x10",
+            "LDS R6, [R7]", "SHF.R.U32.HI R8, RZ, 0x1, R6", "@P1 BRA 0x40"]
+    start = len(body)
+    if ool:
+        body.append("@P5 BRA LOOP_EXIT")
+    d0 = draw("SKIP0")
+    d1 = draw("SKIP1")
+    body += d0 + d1
+    body += ["IADD3 R9, R9, 0x10, RZ"] + (["CALL.REL.NOINC SUB"] if call
+                                           else [])
+    body += ["ISETP.GE.AND P0, PT, R9, R35, PT", f"@!P0 BRA {16 * start:#x}"]
+    stop = len(body) - 1
+    body += ["EXIT", "IMAD.WIDE.U32 R6, R4, R2, RZ", "RET.REL.NODEC R14 0x0"]
+    out = []
+    for i, text in enumerate(body):
+        if text == "NORM":                  # over the normalisation block
+            text = f"@P3 BRA {16 * (i + 3):#x}"
+            if ool:                         # out to it and back
+                text = f"@!P3 BRA {16 * len(body):#x}"
+                body += [body[i + 1], body[i + 2], f"BRA {16 * (i + 3):#x}"]
+                body[i + 1] = body[i + 2] = "NOP"
+        out.append(text)
+    out += body[len(out):]
+    i1 = start + (1 if ool else 0) + len(d0)
+    end = i1 + len(d1)
+    out = [t.replace("SKIP0", f"{16 * i1:#x}").replace("SKIP1",
+                                                       f"{16 * end:#x}")
+           .replace("SUB", f"{16 * (stop + 2):#x}")
+           .replace("LOOP_EXIT", f"{16 * (stop + 1):#x}") for t in out]
+    return _listing(DRAW_NAME, out), start, stop
+
+
+DRAW_NAME = ("_ZN45_GLOBAL__N__8d1e2a2a_12_crush_map_cu_08b4ef1027crush_straw2_"
+             "winners_kernelEPKiPKliS3_S3_xS3_iPl")
+
+
 def test_draw_cost_is_the_mean_of_the_calling_paths():
-    cost = cp.draw_cost(SASS)
-    assert cost["loop"] == ["0x30", "0x120"]
-    assert [d["issue"] for d in cost["draw_paths"]] == [18, 17]
+    """The item loop is found by its hash run, not by a CALL; per draw,
+    the mean of the paths on which both items draw, halved."""
+    sass, start, stop = _draw_sass()
+    cost = cp.draw_cost(sass)
+    assert cost["function"] == DRAW_NAME
+    assert cost["loops"] == [[hex(16 * start), hex(16 * stop)]]
+    assert cost["calls_in_loop"] == 0
+    # each draw: skip, or draw with or without the normalisation block
+    assert len(cost["paths"]) == 9
+    assert sorted(d["issue"] for d in cost["draw_paths"]) == [
+        44.5, 45.5, 45.5, 46.5]
     per = cost["per_draw"]
-    # ISETP IADD3 SEL on the ALU, LOP3 in the call; FLO on half the paths;
-    # five branches, the CALL and the RET take issue slots only
-    assert per == {"alu": 4, "fma": 2, "slow": 1.5, "mem": 2, "uniform": 1,
-                   "control": 7, "issue": 17.5}
-    assert cost["sm_clocks_per_draw"] == max(4 / 64, 2 / 64, 1.5 / 16,
-                                             2 / 32, 17.5 / 128)
+    # per draw: the weight check, 32 hash instructions, the normalisation
+    # test, half a normalisation shift, the compare and select, half the
+    # loop's two ALU instructions; two IMADs; two shared loads and the
+    # weight load; two branches and half the loop's
+    assert per == {"alu": 37.5, "fma": 2, "slow": 0.5, "mem": 3,
+                   "uniform": 0, "control": 2.5, "issue": 45.5}
+    assert cost["sm_clocks_per_draw"] == 37.5 / 64 == max(
+        37.5 / 64, 2 / 64, 0.5 / 16, 3 / 32, 45.5 / 128)
+    sass, start, stop = _draw_sass(call=True)
+    cost = cp.draw_cost(sass)
+    assert cost["calls_in_loop"] == 1
+    assert cost["per_draw"]["issue"] == 45.5 + (1 + 2) / 2
+
+
+def test_draw_cost_follows_blocks_placed_after_the_loop():
+    """Normalisation blocks moved past the EXIT and back add one branch on
+    the paths that take them; the loop's exit to the EXIT is no path."""
+    sass, start, stop = _draw_sass(ool=True)
+    with pytest.raises(ValueError, match="leaves the loop"):
+        cp.loop_paths(cp.functions(sass)[DRAW_NAME], 16 * start, 16 * stop)
+    cost = cp.draw_cost(sass)
+    assert cost["loops"] == [[hex(16 * start), hex(16 * stop)]]
+    assert len(cost["paths"]) == 9
+    # per draw, half the loop-top branch and the branch back on half of
+    # the draws: 0.5 + 0.5 more than test_draw_cost_is_the_mean_...
+    assert cost["per_draw"] == {"alu": 37.5, "fma": 2, "slow": 0.5,
+                                "mem": 3, "uniform": 0, "control": 3.5,
+                                "issue": 46.5}
+
+
+def test_map_kernels_name_each_instantiation():
+    names = [f"_ZN45_GLOBAL__N__8d1e_12_crush_map_cu_16crush_map_kernelILb{f}"
+             f"ELi{g}ELb{u}EEEvNS_6ParamsEPKiPKlPKmS5_S5_S5_xPi"
+             for f in (0, 1) for g in (1, 16) for u in (0, 1)]
+    sass = "".join(_listing(n, ["EXIT"]) for n in names)
+    got = cp.map_kernels(sass)
+    assert sorted(got) == [(f, g, u) for f in (False, True)
+                           for g in (1, 16) for u in (False, True)]
+    assert got[True, 16, False] == names[6]
+
+
+def test_crush_floor_counts_136_per_draw_and_82_per_is_out_hash():
+    import chip_smoke
+    work = {"straw2_draws": 1_000_000, "perm_hashes": 2_000,
+            "is_out_hashes": 30_000}
+    ops = 136 * (1_000_000 + 2_000) + 82 * 30_000
+    # 46 and 28 of them xors, which only the ALU pipe issues: the SM's
+    # issue rate over all operations binds first
+    assert 46 * (1_000_000 + 2_000) + 28 * 30_000 < ops / 2
+    assert chip_smoke.crush_ops_ms(work) == pytest.approx(
+        ops / 128 / (132 * 1.98e9) * 1e3, rel=1e-12)
+    assert chip_smoke.crush_ops_ms({"is_out_hashes": 64}) == pytest.approx(
+        82 / 2 / (132 * 1.98e9) * 1e3, rel=1e-12)
+    assert chip_smoke.crush_ops_ms({}) == 0
+    # a draw: 1.0625 SM clocks; the ALU term binds when xors dominate
+    assert chip_smoke.hash_sm_clocks(136, 46) == 136 / 128
+    assert chip_smoke.hash_sm_clocks(100, 80) == 80 / 64
 
 
 def test_a_branch_out_of_the_loop_is_refused():
@@ -188,10 +310,10 @@ ptxas info    : Used 255 registers, 376 bytes cmem[0]
 
 def test_ptxas_report_reads_registers_and_spills():
     rep = cp.ptxas_report(PTXAS)
-    assert rep == {GF_NAME: {"registers": 40, "spill_stores": 0,
-                             "spill_loads": 0},
-                   GF_BYTES: {"registers": 255, "spill_stores": 4,
-                              "spill_loads": 8}}
+    assert rep == {GF_NAME: {"registers": 40, "stack_frame": 0,
+                             "spill_stores": 0, "spill_loads": 0},
+                   GF_BYTES: {"registers": 255, "stack_frame": 8,
+                              "spill_stores": 4, "spill_loads": 8}}
     funcs = cp.functions(_gf_sass())
     assert cp.gf_kernel(funcs, (256, 16, 2), vec=False) == GF_BYTES
 
@@ -212,6 +334,8 @@ def test_gf_report_joins_costs_and_registers(monkeypatch):
     rep = cp.gf_report(SimpleNamespace(path="lib.so", ptxas=PTXAS))
     assert list(rep) == [((256, 16, 2), False), ((256, 16, 2), True)]
     assert rep[(256, 16, 2), False]["ptxas"] == {
-        "vec": {"registers": 40, "spill_stores": 0, "spill_loads": 0},
-        "bytes": {"registers": 255, "spill_stores": 4, "spill_loads": 8}}
+        "vec": {"registers": 40, "stack_frame": 0, "spill_stores": 0,
+                "spill_loads": 0},
+        "bytes": {"registers": 255, "stack_frame": 8, "spill_stores": 4,
+                  "spill_loads": 8}}
     assert rep[(256, 16, 2), True]["ptxas"] == {"vec": {}, "bytes": {}}

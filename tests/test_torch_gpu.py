@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from ceph_tpu_torch.ec import gf256, kernel
+from ceph_tpu_torch.ops.crush_kernel import LANE_VARIANTS
 from ceph_tpu_torch.osd.ec_queue import LANE_BUCKETS
 
 pytestmark = pytest.mark.gpu
@@ -285,12 +286,34 @@ def _crush_case(name):
     return m, rep, ec, w
 
 
+def _lanes_match_plain(m, rule, size, w, xs, cuda, lanes):
+    """crush_map with ``lanes`` lanes per input equals its plain version
+    on the same card, launch counted."""
+    from ceph_tpu_torch.ops import crush_kernel as ck
+    seg = ck.compile_rule(m, rule).segments[0]
+    numrep, out_size = ck._seg_numrep(seg, size)
+    eng = ck.DeviceEngine(seg, cuda)
+    args = (eng, torch.from_numpy(xs).to(cuda), numrep, out_size,
+            eng.weights(seg), torch.tensor(w, dtype=torch.int64,
+                                           device=cuda))
+    before = ck.crush_map_launches
+    got = ck.crush_map(*args, lanes=lanes)
+    assert ck.crush_map_launches == before + 1
+    assert torch.equal(got, ck.crush_map_plain(*args))
+
+
+@pytest.mark.parametrize("lanes", LANE_VARIANTS)
 @pytest.mark.parametrize("case", ["2level", "3level", "uniform", "short"])
-def test_crush_map_matches_plain_on_card(cuda, case):
+def test_crush_map_matches_plain_on_card(cuda, case, lanes):
     from ceph_tpu_torch.ops import crush_kernel as ck
     m, rep, ec, w = _crush_case(case)
     xs = np.random.default_rng(5).integers(0, 2**32, 20000, dtype=np.int64)
     for rule, size in ((rep, 3), (ec, 6)):
+        _lanes_match_plain(m, rule, size, w, xs, cuda, lanes)
+        if lanes != LANE_VARIANTS[0]:
+            continue
+        # once per case: the entry point (its chosen lanes) against the
+        # plain version on the CPU and the host engine
         before = ck.crush_map_launches
         osds, counts = ck.batch_do_rule_arrays(m, rule, xs, size, w,
                                                engine="device", device=cuda)
@@ -306,6 +329,70 @@ def test_crush_map_matches_plain_on_card(cuda, case):
         else:
             assert np.array_equal(counts, p_counts)
             assert np.array_equal(counts, h_counts)
+
+
+@pytest.mark.parametrize("lanes", LANE_VARIANTS)
+def test_crush_map_at_pool_sizes_on_card(cuda, lanes):
+    """A replicated pool's 32768 PGs firstn x3 and an EC pool's 16384
+    indep x6 on 1024 OSDs (128 hosts x 8), some out, some at 0x8000."""
+    from ceph_tpu_torch.crush.builder import (build_hierarchy,
+                                              make_erasure_rule,
+                                              make_replicated_rule)
+    from ceph_tpu_torch.crush.types import CrushMap
+    m = CrushMap()
+    m.max_devices = 1024
+    build_hierarchy(m, 1024, 8)
+    rep = make_replicated_rule(m, "rep")
+    ec = make_erasure_rule(m, "ec", size=6)
+    w = [0x10000] * 1024
+    for o in (3, 77, 500, 901):
+        w[o] = 0
+    for o in (10, 300, 640, 1000):
+        w[o] = 0x8000
+    rng = np.random.default_rng(lanes)
+    for rule, size, n in ((rep, 3, 32768), (ec, 6, 16384)):
+        xs = rng.integers(0, 2**32, n, dtype=np.int64)
+        _lanes_match_plain(m, rule, size, w, xs, cuda, lanes)
+
+
+def _ties_map():
+    """16 hosts of 4 OSDs whose straw2 weights are all 0x40000000 (so a
+    draw's quotient is below 2^18 and equal draws are common) under a
+    root with equal weights 0xF0000000; host 3's OSDs all weigh 0."""
+    from ceph_tpu_torch.crush.builder import (make_bucket,
+                                              make_erasure_rule,
+                                              make_replicated_rule)
+    from ceph_tpu_torch.crush.constants import BUCKET_STRAW2
+    from ceph_tpu_torch.crush.types import CrushMap
+    m = CrushMap()
+    m.max_devices = 64
+    hosts = []
+    for h in range(16):
+        b = make_bucket(m, BUCKET_STRAW2, 1, list(range(4 * h, 4 * h + 4)),
+                        [0] * 4 if h == 3 else [0x40000000] * 4)
+        m.name_map[b.id] = f"host{h}"
+        hosts.append(b)
+    root = make_bucket(m, BUCKET_STRAW2, 10, [b.id for b in hosts],
+                       [0xF0000000] * 16)
+    m.name_map[root.id] = "default"
+    w = [0x10000] * 64
+    w[5], w[9] = 0, 0x8000
+    return m, make_replicated_rule(m, "rep"), make_erasure_rule(
+        m, "ec", size=6), w
+
+
+@pytest.mark.parametrize("lanes", LANE_VARIANTS)
+def test_crush_map_ties_and_an_all_zero_row_on_card(cuda, lanes):
+    from ceph_tpu_torch.ops import crush_kernel as ck
+    m, rep, ec, w = _ties_map()
+    xs = np.random.default_rng(11).integers(0, 2**32, 30000, dtype=np.int64)
+    for rule, size in ((rep, 3), (ec, 6)):
+        _lanes_match_plain(m, rule, size, w, xs, cuda, lanes)
+    # the all-zero host row draws S64_MIN everywhere: its first OSD wins
+    host3 = m.bucket(m.bucket(m.rules[rep].steps[0].arg1).items[3])
+    got = ck.crush_straw2_winners(*(torch.tensor(a, device=cuda) for a in (
+        host3.items, host3.item_weights, [1, 2, 3], [0, 1])))
+    assert (got.cpu() == host3.items[0]).all()
 
 
 def test_crush_straw2_winners_matches_plain_on_card(cuda):
@@ -340,6 +427,21 @@ def test_crush_refused_launch_raises(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="crush_map launch failed"):
         ck.batch_do_rule_arrays(m, rep, np.arange(100), 3, w,
                                 engine="device", device=cuda)
+
+
+def test_crush_refused_variant_launch_raises(cuda):
+    """A lane count the kernel is not built for: the launch is refused
+    and the wrapper raises; nothing is counted."""
+    from ceph_tpu_torch.ops import crush_kernel as ck
+    m, rep, _, w = _crush_case("2level")
+    seg = ck.compile_rule(m, rep).segments[0]
+    eng = ck.DeviceEngine(seg, cuda)
+    before = ck.crush_map_launches
+    with pytest.raises(RuntimeError, match="crush_map launch failed"):
+        ck.crush_map(eng, torch.arange(100, device=cuda), 3, 3,
+                     eng.weights(seg), torch.tensor(w, device=cuda),
+                     lanes=3)
+    assert ck.crush_map_launches == before
 
 
 def test_osdmap_entries_default_to_the_crush_kernel(cuda, tmp_path):
