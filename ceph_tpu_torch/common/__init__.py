@@ -1,5 +1,6 @@
 """Core runtime shared by every daemon and client (the port's copy of
-``ceph_tpu.common``; only the modules the EC data path needs so far)."""
+``ceph_tpu.common``; so far the modules the EC data path and the
+native host kernels' callers need)."""
 
 from ceph_tpu_torch.common.config import Config, Option, OPT_TYPES
 from ceph_tpu_torch.common.context import Context

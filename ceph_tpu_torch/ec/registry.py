@@ -32,9 +32,10 @@ def register(name: str) -> Callable[[Type[ErasureCode]], Type[ErasureCode]]:
 
 
 def _ensure_builtin() -> None:
-    # importing the module registers its plugins (the "dlopen"); the
-    # lrc and shec plugins are not ported yet
+    # importing the module registers its plugins (the "dlopen")
     import ceph_tpu_torch.ec.rs          # noqa: F401
+    import ceph_tpu_torch.ec.lrc         # noqa: F401
+    import ceph_tpu_torch.ec.shec        # noqa: F401
 
 
 def factory(name: str, profile: Dict[str, str],

@@ -1,0 +1,490 @@
+// ceph_tpu_torch native host kernels (C ABI, loaded via ctypes).
+//
+// The port's copy of ceph_tpu/native/src/native.cc, unchanged in
+// behaviour: the host-side native layer, standing in for the reference's
+// native pieces that remain CPU-resident:
+//   * crc32c (castagnoli, slicing-by-8) — reference src/common/crc32c*.cc
+//     (sctp_crc32 software path; the HW-accel dispatch is an impl detail)
+//   * rjenkins hash batch — reference src/crush/hash.c:12-90, used to
+//     accelerate host-side placement fallback paths
+//   * GF(2^8) region encode (poly 0x11d, log/exp tables) — the scalar CPU
+//     equivalent of the reference's jerasure/ISA-L kernels
+//     (src/erasure-code/isa/isa-l/erasure_code/*.asm.s); the EC batch
+//     queue's path for small lone requests (osd/ec_queue.py)
+//   * region xor — reference src/erasure-code/isa/xor_op.cc (m=1 path)
+//   * batched straw2 winners — the CRUSH host engine's draws
+//     (ops/crush_kernel.py)
+//
+// Build: g++ -O3 -march=native -fopenmp -shared -fPIC
+// (ceph_tpu_torch/native/__init__.py, into ceph_tpu_torch/_build/).
+
+#include <cstdint>
+#include <cstring>
+
+#if defined(__GFNI__) && defined(__AVX512F__) && defined(__AVX512BW__)
+#define CEPH_TPU_GFNI512 1
+#include <immintrin.h>
+#endif
+
+extern "C" {
+
+// ---------------------------------------------------------------- crc32c --
+static uint32_t crc32c_table[8][256];
+static bool crc32c_ready = false;
+
+static void crc32c_init() {
+  for (uint32_t i = 0; i < 256; i++) {
+    uint32_t c = i;
+    for (int k = 0; k < 8; k++)
+      c = (c & 1) ? (0x82F63B78u ^ (c >> 1)) : (c >> 1);
+    crc32c_table[0][i] = c;
+  }
+  for (uint32_t i = 0; i < 256; i++) {
+    uint32_t c = crc32c_table[0][i];
+    for (int s = 1; s < 8; s++) {
+      c = crc32c_table[0][c & 0xff] ^ (c >> 8);
+      crc32c_table[s][i] = c;
+    }
+  }
+  crc32c_ready = true;
+}
+
+uint32_t ceph_crc32c(uint32_t crc, const uint8_t* data, uint64_t len) {
+  if (!crc32c_ready) crc32c_init();
+  crc = ~crc;
+  while (len && ((uintptr_t)data & 7)) {
+    crc = crc32c_table[0][(crc ^ *data++) & 0xff] ^ (crc >> 8);
+    len--;
+  }
+  while (len >= 8) {
+    uint64_t v;
+    memcpy(&v, data, 8);
+    v ^= crc;
+    crc = crc32c_table[7][v & 0xff] ^ crc32c_table[6][(v >> 8) & 0xff] ^
+          crc32c_table[5][(v >> 16) & 0xff] ^ crc32c_table[4][(v >> 24) & 0xff] ^
+          crc32c_table[3][(v >> 32) & 0xff] ^ crc32c_table[2][(v >> 40) & 0xff] ^
+          crc32c_table[1][(v >> 48) & 0xff] ^ crc32c_table[0][(v >> 56) & 0xff];
+    data += 8;
+    len -= 8;
+  }
+  while (len--) crc = crc32c_table[0][(crc ^ *data++) & 0xff] ^ (crc >> 8);
+  return ~crc;
+}
+
+// ------------------------------------------------------------- rjenkins --
+#define crush_hashmix(a, b, c) do {            \
+    a = (uint32_t)(a - b); a -= c; a ^= (c >> 13); \
+    b = (uint32_t)(b - c); b -= a; b ^= (a << 8);  \
+    c = (uint32_t)(c - a); c -= b; c ^= (b >> 13); \
+    a = (uint32_t)(a - b); a -= c; a ^= (c >> 12); \
+    b = (uint32_t)(b - c); b -= a; b ^= (a << 16); \
+    c = (uint32_t)(c - a); c -= b; c ^= (b >> 5);  \
+    a = (uint32_t)(a - b); a -= c; a ^= (c >> 3);  \
+    b = (uint32_t)(b - c); b -= a; b ^= (a << 10); \
+    c = (uint32_t)(c - a); c -= b; c ^= (b >> 15); \
+  } while (0)
+
+static const uint32_t crush_hash_seed = 1315423911u;
+
+uint32_t ceph_rjenkins3(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t hash = crush_hash_seed ^ a ^ b ^ c;
+  uint32_t x = 231232, y = 1232;
+  crush_hashmix(a, b, hash);
+  crush_hashmix(c, x, hash);
+  crush_hashmix(y, a, hash);
+  crush_hashmix(b, x, hash);
+  crush_hashmix(y, c, hash);
+  return hash;
+}
+
+void ceph_rjenkins3_batch(const uint32_t* a, uint32_t b, uint32_t c,
+                          uint32_t* out, uint64_t n) {
+  for (uint64_t i = 0; i < n; i++) out[i] = ceph_rjenkins3(a[i], b, c);
+}
+
+// ---------------------------------------------------------------- gf256 --
+static uint8_t gf_exp[512];
+static uint8_t gf_log[256];
+static bool gf_ready = false;
+
+static void gf_init() {
+  int x = 1;
+  for (int i = 0; i < 255; i++) {
+    gf_exp[i] = (uint8_t)x;
+    gf_log[x] = (uint8_t)i;
+    x <<= 1;
+    if (x & 0x100) x ^= 0x11d;
+  }
+  for (int i = 255; i < 510; i++) gf_exp[i] = gf_exp[i - 255];
+  gf_ready = true;
+}
+
+static uint8_t gf_mul1(uint8_t a, uint8_t b) {
+  if (!a || !b) return 0;
+  return gf_exp[gf_log[a] + gf_log[b]];
+}
+
+// out[r][L] = mat(r x k) * chunks(k x L) over GF(2^8), scalar path:
+// per-coefficient 256-byte product tables + xor sweep, what jerasure's
+// non-SIMD path does.  Kept exported so bench.py can report both the
+// scalar and the SIMD CPU baselines.
+void ceph_gf_matrix_apply_scalar(const uint8_t* mat, int r, int k,
+                                 const uint8_t* chunks, uint8_t* out,
+                                 uint64_t L) {
+  if (!gf_ready) gf_init();
+  uint8_t table[256];
+  for (int i = 0; i < r; i++) {
+    uint8_t* dst = out + (uint64_t)i * L;
+    memset(dst, 0, L);
+    for (int j = 0; j < k; j++) {
+      uint8_t c = mat[i * k + j];
+      if (!c) continue;
+      const uint8_t* src = chunks + (uint64_t)j * L;
+      if (c == 1) {
+        for (uint64_t t = 0; t < L; t++) dst[t] ^= src[t];
+        continue;
+      }
+      int lc = gf_log[c];
+      table[0] = 0;
+      for (int b = 1; b < 256; b++) table[b] = gf_exp[lc + gf_log[b]];
+      for (uint64_t t = 0; t < L; t++) dst[t] ^= table[src[t]];
+    }
+  }
+}
+
+#ifdef CEPH_TPU_GFNI512
+// GFNI/AVX-512 path: multiplication by a constant c in GF(2^8)/0x11d is
+// linear over GF(2), i.e. an 8x8 bit-matrix — exactly what
+// vgf2p8affineqb applies to 64 bytes per instruction.  This is the
+// modern isa-l-class SIMD kernel (isa-l's gf_vect_dot_prod AVX512-GFNI
+// flavor works the same way); it serves as the honest "best CPU"
+// baseline the TPU kernel is measured against (BASELINE.md row 2).
+//
+// The affine qword's bit orientation (row order / column order) is
+// resolved EMPIRICALLY at init against the scalar log/exp product, so
+// no SDM bit-numbering assumption is baked in.
+static uint64_t gfni_mat[256];
+static bool gfni_ready = false;
+static int gfni_row_flip, gfni_col_flip;
+
+static uint64_t gfni_build(uint8_t c, int row_flip, int col_flip) {
+  // column j of the matrix = c * x^j  (the image of input bit j)
+  uint8_t col[8];
+  for (int j = 0; j < 8; j++) col[j] = gf_mul1(c, (uint8_t)(1u << j));
+  uint64_t q = 0;
+  for (int b = 0; b < 8; b++) {           // output bit b -> one row byte
+    uint8_t row = 0;
+    for (int j = 0; j < 8; j++)
+      if ((col[j] >> b) & 1) row |= (uint8_t)(1u << (col_flip ? 7 - j : j));
+    int byte_idx = row_flip ? 7 - b : b;
+    q |= (uint64_t)row << (8 * byte_idx);
+  }
+  return q;
+}
+
+static void gfni_init() {
+  if (!gf_ready) gf_init();
+  // Runtime CPUID gate: the .so may be prebuilt on a GFNI host and
+  // loaded on one without it — entering any 512-bit intrinsic there is
+  // SIGILL, so check before the probe.
+  if (!__builtin_cpu_supports("gfni") ||
+      !__builtin_cpu_supports("avx512f") ||
+      !__builtin_cpu_supports("avx512bw"))
+    return;
+  // pick the orientation that reproduces scalar gfmul for c=0x53
+  uint8_t probe[64];
+  for (int i = 0; i < 64; i++) probe[i] = (uint8_t)(i * 37 + 1);
+  __m512i v = _mm512_loadu_si512(probe);
+  bool found = false;
+  for (int rf = 0; rf < 2 && !found; rf++)
+    for (int cf = 0; cf < 2 && !found; cf++) {
+      __m512i m = _mm512_set1_epi64((long long)gfni_build(0x53, rf, cf));
+      uint8_t got[64];
+      _mm512_storeu_si512(got, _mm512_gf2p8affine_epi64_epi8(v, m, 0));
+      bool ok = true;
+      for (int i = 0; i < 64 && ok; i++)
+        ok = got[i] == gf_mul1(0x53, probe[i]);
+      if (ok) {
+        gfni_row_flip = rf;
+        gfni_col_flip = cf;
+        found = true;
+      }
+    }
+  if (!found) return;  // unexpected; caller falls back to scalar
+  for (int c = 0; c < 256; c++)
+    gfni_mat[c] = gfni_build((uint8_t)c, gfni_row_flip, gfni_col_flip);
+  // publish ONLY after the table is fully built: a concurrent caller
+  // that observes gfni_ready must never see a half-filled gfni_mat
+  // (ctypes releases the GIL, so two python threads can race here;
+  // double-init is idempotent and harmless)
+  __atomic_store_n(&gfni_ready, true, __ATOMIC_RELEASE);
+}
+
+static void gf_matrix_apply_gfni(const uint8_t* mat, int r, int k,
+                                 const uint8_t* chunks, uint8_t* out,
+                                 uint64_t L) {
+  const uint64_t BLK = 1 << 14;  // per-task block: L2-friendly, omp unit
+#pragma omp parallel for schedule(static)
+  for (uint64_t t0 = 0; t0 < L; t0 += BLK) {
+    uint64_t n = (L - t0) < BLK ? (L - t0) : BLK;
+    uint64_t vend = t0 + (n & ~63ULL);
+    for (int i = 0; i < r; i++) {
+      uint8_t* dst = out + (uint64_t)i * L;
+      const uint8_t* row = mat + (uint64_t)i * k;
+      for (uint64_t t = t0; t < vend; t += 64) {
+        __m512i acc = _mm512_setzero_si512();
+        for (int j = 0; j < k; j++) {
+          if (!row[j]) continue;
+          __m512i v = _mm512_loadu_si512(chunks + (uint64_t)j * L + t);
+          acc = _mm512_xor_si512(acc, _mm512_gf2p8affine_epi64_epi8(
+              v, _mm512_set1_epi64((long long)gfni_mat[row[j]]), 0));
+        }
+        _mm512_storeu_si512(dst + t, acc);
+      }
+      for (uint64_t t = vend; t < t0 + n; t++) {  // scalar tail
+        uint8_t acc = 0;
+        for (int j = 0; j < k; j++)
+          acc ^= gf_mul1(row[j], chunks[(uint64_t)j * L + t]);
+        dst[t] = acc;
+      }
+    }
+  }
+}
+#endif  // CEPH_TPU_GFNI512
+
+// Auto-dispatching GF(2^8) matrix apply: SIMD (GFNI/AVX-512) when the
+// host supports it, scalar table sweep otherwise.
+void ceph_gf_matrix_apply(const uint8_t* mat, int r, int k,
+                          const uint8_t* chunks, uint8_t* out, uint64_t L) {
+#ifdef CEPH_TPU_GFNI512
+  if (!gfni_ready) gfni_init();
+  if (gfni_ready) {
+    gf_matrix_apply_gfni(mat, r, k, chunks, out, L);
+    return;
+  }
+#endif
+  ceph_gf_matrix_apply_scalar(mat, r, k, chunks, out, L);
+}
+
+// 1 when the SIMD (GFNI/AVX-512) kernel is active.
+int ceph_gf_simd_available() {
+#ifdef CEPH_TPU_GFNI512
+  if (!gfni_ready) gfni_init();
+  return gfni_ready ? 1 : 0;
+#else
+  return 0;
+#endif
+}
+
+void ceph_region_xor(const uint8_t* a, const uint8_t* b, uint8_t* out,
+                     uint64_t len) {
+  uint64_t i = 0;
+  for (; i + 8 <= len; i += 8) {
+    uint64_t va, vb;
+    memcpy(&va, a + i, 8);
+    memcpy(&vb, b + i, 8);
+    va ^= vb;
+    memcpy(out + i, &va, 8);
+  }
+  for (; i < len; i++) out[i] = a[i] ^ b[i];
+}
+
+
+// -------------------------------------------------- batched straw2 choose --
+// Row-wise straw2 winner: for each lane i, argmax over I items of
+// draw = div64(crush_ln(hash(x_i, item, r_i) & 0xffff) - 2^48, weight).
+// The ln table (65536 int64 entries, crush_ln(u) for u in [0,0xffff]) is
+// passed in from python so the table stays single-sourced
+// (ceph_tpu/crush/lntable.py <- reference crush_ln_table.h).
+// Mirrors bucket_straw2_choose (reference src/crush/mapper.c:300-344).
+void ceph_straw2_winner_rows(const int32_t* items,    // [X*I]
+                             const int64_t* weights,  // [X*I]
+                             int64_t X, int32_t I,
+                             const uint32_t* xs,      // [X]
+                             const uint32_t* rs,      // [X]
+                             const int64_t* ln_tab,   // [65536]
+                             int32_t* out_idx) {      // [X]
+#pragma omp parallel for schedule(static) if (X > 4096)
+  for (int64_t i = 0; i < X; i++) {
+    const int32_t* it = items + i * I;
+    const int64_t* w = weights + i * I;
+    uint32_t xi = xs[i], ri = rs[i];
+    int32_t high = 0;
+    int64_t high_draw = 0;
+    for (int32_t j = 0; j < I; j++) {
+      int64_t draw;
+      if (w[j] > 0) {
+        uint32_t u = ceph_rjenkins3(xi, (uint32_t)it[j], ri) & 0xffffu;
+        int64_t ln = ln_tab[u] - 0x1000000000000LL;
+        // div64_s64 truncates toward zero; ln <= 0, w > 0
+        draw = -((-ln) / w[j]);
+      } else {
+        draw = INT64_MIN;
+      }
+      if (j == 0 || draw > high_draw) { high = j; high_draw = draw; }
+    }
+    out_idx[i] = high;
+  }
+}
+
+
+// Shared-bucket variant: every lane draws from the SAME item list (the
+// root bucket case) — avoids materializing [X, I] copies in python.
+void ceph_straw2_winner_rows_indexed(
+    const int32_t* items,    // [N*I] level bucket table
+    const int64_t* weights,  // [N*I]
+    const int64_t* rows,     // [X] row of each lane's bucket
+    int64_t X, int32_t I,
+    const uint32_t* xs,      // [X]
+    const uint32_t* rs,      // [X]
+    const int64_t* ln_tab,   // [65536]
+    int32_t* out_item) {     // [X] chosen ITEM id (not index)
+  // Multi-level descent inner loop: lanes index a shared per-level
+  // bucket table, so the [X, I] items/weights gather numpy would
+  // materialize never exists — each lane streams its row in-place.
+#pragma omp parallel for schedule(static) if (X > 4096)
+  for (int64_t i = 0; i < X; i++) {
+    const int32_t* it = items + rows[i] * I;
+    const int64_t* w = weights + rows[i] * I;
+    uint32_t xi = xs[i], ri = rs[i];
+    int32_t high = 0;
+    int64_t high_draw = 0;
+    for (int32_t j = 0; j < I; j++) {
+      int64_t draw;
+      if (w[j] > 0) {
+        uint32_t u = ceph_rjenkins3(xi, (uint32_t)it[j], ri) & 0xffffu;
+        int64_t ln = ln_tab[u] - 0x1000000000000LL;
+        draw = -((-ln) / w[j]);
+      } else {
+        draw = INT64_MIN;
+      }
+      if (j == 0 || draw > high_draw) { high = j; high_draw = draw; }
+    }
+    out_item[i] = it[high];
+  }
+}
+
+void ceph_straw2_winner_shared(const int32_t* items,   // [I]
+                               const int64_t* weights, // [I]
+                               int32_t I, const uint32_t* xs,
+                               const uint32_t* rs, int64_t X,
+                               const int64_t* ln_tab,
+                               int32_t* out_idx) {
+#pragma omp parallel for schedule(static) if (X > 4096)
+  for (int64_t i = 0; i < X; i++) {
+    uint32_t xi = xs[i], ri = rs[i];
+    int32_t high = 0;
+    int64_t high_draw = 0;
+    for (int32_t j = 0; j < I; j++) {
+      int64_t draw;
+      if (weights[j] > 0) {
+        uint32_t u = ceph_rjenkins3(xi, (uint32_t)items[j], ri) & 0xffffu;
+        int64_t ln = ln_tab[u] - 0x1000000000000LL;
+        draw = -((-ln) / weights[j]);
+      } else {
+        draw = INT64_MIN;
+      }
+      if (j == 0 || draw > high_draw) { high = j; high_draw = draw; }
+    }
+    out_idx[i] = high;
+  }
+}
+
+// ---------------------------------------------------------------- xxhash --
+// XXH32/XXH64 one-shot, implemented from the public algorithm spec
+// (the reference vendors the xxHash submodule; BlockStore offers it as
+// a selectable checksum type and the pure-python fallback runs at
+// ~5 MB/s — useless for a data-path csum).
+
+static inline uint32_t xx_rotl32(uint32_t x, int r) {
+  return (x << r) | (x >> (32 - r));
+}
+static inline uint64_t xx_rotl64(uint64_t x, int r) {
+  return (x << r) | (x >> (64 - r));
+}
+static inline uint32_t xx_read32(const uint8_t* p) {
+  uint32_t v; __builtin_memcpy(&v, p, 4); return v;
+}
+static inline uint64_t xx_read64(const uint8_t* p) {
+  uint64_t v; __builtin_memcpy(&v, p, 8); return v;
+}
+
+uint32_t ceph_xxh32(const uint8_t* p, uint64_t len, uint32_t seed) {
+  const uint32_t P1 = 2654435761u, P2 = 2246822519u, P3 = 3266489917u,
+                 P4 = 668265263u, P5 = 374761393u;
+  const uint8_t* end = p + len;
+  uint32_t h;
+  if (len >= 16) {
+    uint32_t v1 = seed + P1 + P2, v2 = seed + P2, v3 = seed,
+             v4 = seed - P1;
+    const uint8_t* limit = end - 16;
+    do {
+      v1 = xx_rotl32(v1 + xx_read32(p) * P2, 13) * P1; p += 4;
+      v2 = xx_rotl32(v2 + xx_read32(p) * P2, 13) * P1; p += 4;
+      v3 = xx_rotl32(v3 + xx_read32(p) * P2, 13) * P1; p += 4;
+      v4 = xx_rotl32(v4 + xx_read32(p) * P2, 13) * P1; p += 4;
+    } while (p <= limit);
+    h = xx_rotl32(v1, 1) + xx_rotl32(v2, 7) + xx_rotl32(v3, 12) +
+        xx_rotl32(v4, 18);
+  } else {
+    h = seed + P5;
+  }
+  h += (uint32_t)len;
+  while (p + 4 <= end) {
+    h = xx_rotl32(h + xx_read32(p) * P3, 17) * P4;
+    p += 4;
+  }
+  while (p < end) {
+    h = xx_rotl32(h + (*p) * P5, 11) * P1;
+    p++;
+  }
+  h ^= h >> 15; h *= P2; h ^= h >> 13; h *= P3; h ^= h >> 16;
+  return h;
+}
+
+uint64_t ceph_xxh64(const uint8_t* p, uint64_t len, uint64_t seed) {
+  const uint64_t P1 = 11400714785074694791ULL,
+                 P2 = 14029467366897019727ULL,
+                 P3 = 1609587929392839161ULL,
+                 P4 = 9650029242287828579ULL,
+                 P5 = 2870177450012600261ULL;
+  const uint8_t* end = p + len;
+  uint64_t h;
+  if (len >= 32) {
+    uint64_t v1 = seed + P1 + P2, v2 = seed + P2, v3 = seed,
+             v4 = seed - P1;
+    const uint8_t* limit = end - 32;
+    do {
+      v1 = xx_rotl64(v1 + xx_read64(p) * P2, 31) * P1; p += 8;
+      v2 = xx_rotl64(v2 + xx_read64(p) * P2, 31) * P1; p += 8;
+      v3 = xx_rotl64(v3 + xx_read64(p) * P2, 31) * P1; p += 8;
+      v4 = xx_rotl64(v4 + xx_read64(p) * P2, 31) * P1; p += 8;
+    } while (p <= limit);
+    h = xx_rotl64(v1, 1) + xx_rotl64(v2, 7) + xx_rotl64(v3, 12) +
+        xx_rotl64(v4, 18);
+    v1 = xx_rotl64(v1 * P2, 31) * P1; h ^= v1; h = h * P1 + P4;
+    v2 = xx_rotl64(v2 * P2, 31) * P1; h ^= v2; h = h * P1 + P4;
+    v3 = xx_rotl64(v3 * P2, 31) * P1; h ^= v3; h = h * P1 + P4;
+    v4 = xx_rotl64(v4 * P2, 31) * P1; h ^= v4; h = h * P1 + P4;
+  } else {
+    h = seed + P5;
+  }
+  h += len;
+  while (p + 8 <= end) {
+    uint64_t k = xx_rotl64(xx_read64(p) * P2, 31) * P1;
+    h = xx_rotl64(h ^ k, 27) * P1 + P4;
+    p += 8;
+  }
+  if (p + 4 <= end) {
+    h = xx_rotl64(h ^ ((uint64_t)xx_read32(p) * P1), 23) * P2 + P3;
+    p += 4;
+  }
+  while (p < end) {
+    h = xx_rotl64(h ^ ((*p) * P5), 11) * P1;
+    p++;
+  }
+  h ^= h >> 33; h *= P2; h ^= h >> 29; h *= P3; h ^= h >> 32;
+  return h;
+}
+
+}  // extern C

@@ -17,9 +17,12 @@ noted under devstats domain "crush_compile".
 
 Three engines compute the same placements:
 
-  * ``"host"``: numpy over the lanes, the reference's numpy engine
+  * ``"host"``: numpy over the lanes, the reference's host engine
     (``map_firstn``/``map_indep``: masked rounds over the shrinking set of
-    unresolved lanes; the native C host library is not ported).
+    unresolved lanes), its straw2 draws in the native host library
+    (``ceph_tpu_torch/native``: ``straw2_winner_shared``, ``_rows``,
+    ``_rows_indexed``) when it is built, in numpy otherwise; both give
+    the same placements.
   * ``"device"`` on CUDA: ``crush_map``, a hand-written kernel
     (``csrc/crush_map.cu``) that runs mapper.c's loops with a tile of
     ``lanes`` threads per input (``choose_lanes``); it replaces the JAX
@@ -76,7 +79,8 @@ class Level:
     _build_levels); ids/sizes feed the uniform perm-choose hash and the
     indep r-stride bump."""
 
-    __slots__ = ("items", "weights", "rows", "alg", "ids", "sizes")
+    __slots__ = ("items", "weights", "rows", "items32", "alg", "ids",
+                 "sizes")
 
     def __init__(self, buckets):
         imax = max(b.size for b in buckets)
@@ -93,6 +97,9 @@ class Level:
             self.rows[-1 - b.id] = row
             self.ids[row] = b.id
             self.sizes[row] = b.size
+        # int32 copy for the native indexed-rows draw (item ids are
+        # 32-bit in crush)
+        self.items32 = np.ascontiguousarray(self.items, np.int32)
 
     @property
     def shared(self) -> bool:
@@ -339,13 +346,32 @@ def _ln():
     return _LN
 
 
+#: the native host library when it is built, False when it is not, None
+#: before the first draw asks (a test sets False to force numpy)
+_native_mod = None
+
+
+def _native():
+    global _native_mod
+    if _native_mod is None:
+        from ceph_tpu_torch import native
+        _native_mod = native if native.available() else False
+    return _native_mod
+
 
 def _straw2_draw(items, weights, x, r):
     """Vectorized bucket_straw2_choose: returns winning index along the
     last axis.  items/weights [I] (shared bucket) or [X, I] (per-lane);
-    x/r [X]."""
+    x/r [X].  Dispatches to the native C draws when they are built;
+    pure numpy otherwise, with identical results."""
     x = np.asarray(x)
     r = np.asarray(r)
+    nat = _native()
+    if nat and x.ndim == 1:
+        rr = np.broadcast_to(r, x.shape)
+        if items.ndim == 1:
+            return nat.straw2_winner_shared(items, weights, x, rr, _ln())
+        return nat.straw2_winner_rows(items, weights, x, rr, _ln())
     u = np_hash32_3(x[..., None],
                     (items & 0xFFFFFFFF).astype(np.uint32),
                     r[..., None]).astype(np.int64) & 0xFFFF
@@ -421,11 +447,17 @@ def _level_draw(lv: "Level", rows: np.ndarray, x: np.ndarray,
                 r: np.ndarray) -> np.ndarray:
     """Chosen ITEM ids for one level: each lane draws from the bucket
     at its `rows` index.  Uniform levels run the vectorized
-    perm-choose; straw2 gathers the lanes' rows into an [X, I] draw."""
+    perm-choose; straw2 takes the native indexed draw (each lane reads
+    its row of the level table in place) or the numpy [X, I] gather."""
     if lv.uniform:
         idx = _perm_choose_idx(lv.sizes[rows], lv.ids[rows], x,
                                np.broadcast_to(r, x.shape))
         return lv.items[rows, idx]
+    nat = _native()
+    if nat and x.ndim == 1:
+        rr = np.broadcast_to(r, x.shape)
+        return nat.straw2_winner_rows_indexed(
+            lv.items32, lv.weights, rows, x, rr, _ln())
     items = lv.items[rows]                  # [X, I]
     weights = lv.weights[rows]
     idx = _straw2_draw(items, weights, x, r)

@@ -23,9 +23,10 @@ Design:
     output buffer, and the results come home in one transfer.  The
     device work runs in a single-thread executor so the event loop
     never blocks on the device.
-  * Small lone requests take the host path (gf256.host_apply) instead:
-    a sub-window dispatch costs more latency than encoding 64 KiB on the
-    CPU.  Everything is counted in perf counters so `perf dump` proves
+  * Small lone requests take the host path instead: the native host
+    kernel (GFNI/AVX-512 where the CPU has it, ceph_tpu_torch/native),
+    or gf256.host_apply where no compiler built it.  A sub-window
+    dispatch costs more latency than encoding 64 KiB on the CPU.  Everything is counted in perf counters so `perf dump` proves
     where bytes went.
 
 Modes: "off" = host always; "force" = the device path on whatever
@@ -51,6 +52,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ceph_tpu_torch import native
 from ceph_tpu_torch.common import devstats
 from ceph_tpu_torch.common.device import (DEFAULT_DEVICE, DeviceLike,
                                           resolve_device)
@@ -172,6 +174,8 @@ class ECBatchQueue:
         self.perf.inc("host_requests")
         self.perf.inc("host_bytes", nbytes)
         devstats.note_bytes("ec_apply", nbytes, device=False)
+        if native.available():
+            return native.gf_matrix_apply(mat, chunks)
         return gf256.host_apply(mat, chunks)
 
     async def stop(self) -> None:

@@ -3,12 +3,15 @@
 one CUDA card, from the root of a checkout.
 
 It drives ceph_tpu_torch's EC write / degraded-read data path, the EC
-variant tuner, and CRUSH placement up to the OSDMap and osdmaptool on the
-card, and fails (exit code 1, no result line) on any fault:
+variant tuner, CRUSH placement up to the OSDMap and osdmaptool, the lrc
+and shec codecs, crushtool and psim on the card, and the native host
+library on its host, and fails (exit code 1, no result line) on any
+fault:
 
   1. prints the card's name and power limit, builds the kernels
-     (csrc/gf_apply.cu and csrc/crush_map.cu, one nvcc each, started
-     together, for sm_90a) and prints each build time; for every CRUSH
+     (csrc/gf_apply.cu and csrc/crush_map.cu, one nvcc each, for sm_90a)
+     and the native host library (g++), all three started together, and
+     prints each build time; for every CRUSH
      kernel instantiation its registers, stack frame and spills and the
      instructions one straw2 draw issues in the built SASS, by pipe,
      beside the hash's operations that the CRUSH bounds count (fails if
@@ -55,8 +58,29 @@ card, and fails (exit code 1, no result line) on any fault:
      against engine="host"; then map_pgs_batch's steps are timed and the
      descent kernel alone at each pool's size, in every lane variant
      (each equal to the plain version), beside its bound there;
-  9. times the probe, the descent and the winner grid beside their plain
-     versions and bounds, and prints the ``kernels`` line.
+  9. the native host library: fails unless it built; gf_matrix_apply
+     against the numpy host apply at the queue's host threshold, the
+     straw2 draws against the numpy draw over the 128-host root at 65,536
+     inputs; then host-clock times of the queue's host path (16 and 64 KiB
+     requests) and of the CRUSH host engine (16 to 4096 inputs, the three
+     rules of phase 7), native against numpy alone;
+ 10. Ceph's documented LRC (k=4 m=2 l=3) and SHEC (k=4 m=3 c=2) profiles
+     on the card: phase 3's 64 objects through encode, decode with one
+     data chunk lost (LRC from its local group, fewer than k chunks) and
+     with the most losses each profile repairs; every chunk equal to the
+     same codec's on the CPU; the matrix apply's launches set to 0 before
+     and read after each step; ec_benchmark with both at 256 MiB; the
+     apply's time at the narrow matrices of a 4 MiB object;
+ 11. crushtool on phase 7's map: -d then -c back to the same bytes;
+     --test over 1,000,000 inputs on the default (device) engine, whose
+     one crush_map launch is counted; on 65,536 inputs the device report
+     equals the host engine's apart from timing;
+ 12. psim (1024 OSDs, 128 hosts, 32768 PGs, size 3, 1M objects) on the
+     device and the host engines: equal reports, one crush_map launch;
+ 13. times the probe, the descent and the winner grid beside their plain
+     versions and bounds, and prints the ``kernels`` line (launches by
+     path: the queue, lrc, shec; the CRUSH path, the OSDMap, crushtool,
+     psim).
 
 The last line of its output is ``{"ok": true, "device": {...}}``.  It
 imports nothing of JAX and nothing of the JAX package.
@@ -673,6 +697,336 @@ def osdmap_path(torch, np, dev, smi):
     return launches, pools
 
 
+def _host_cpu():
+    """The host CPU's vendor, family, model and model name (the first
+    processor's lines; a virtual machine may hide the name)."""
+    keys = ("vendor_id", "cpu family", "model", "model name")
+    seen = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, val = line.partition(":")
+                if key.strip() in keys:
+                    seen.setdefault(key.strip(), val.strip())
+                if not line.strip():
+                    break
+    except OSError:
+        pass
+    return " ".join(f"{k} {seen.get(k, '?')}" for k in keys)
+
+
+def native_phase(np, dev, smi, sizes=(16, 64, 256, 1024, 4096),
+                 draw_inputs=65536):
+    """The native host library on the card's host: it must be built;
+    gf_matrix_apply against the numpy host apply at the queue's host
+    threshold, straw2_winner_rows and _shared against the numpy draw on
+    the 128-host root; then the queue's host path and the CRUSH host
+    engine, native against numpy alone.  Host times, not device times."""
+    from crush_probe import _median_s, host_engine_rows
+    from ceph_tpu_torch import native
+    from ceph_tpu_torch.common.context import Context
+    from ceph_tpu_torch.ec import gf256
+    from ceph_tpu_torch.ops import crush_kernel as ck
+    from ceph_tpu_torch.osd.ec_queue import ECBatchQueue
+    check(native.available(), f"the native host library did not build: "
+                              f"{native.build_info['error']}")
+    simd = native.gf_simd_available()
+    with open("/proc/self/maps") as f:
+        omp = sorted({line.split()[-1] for line in f if "gomp" in line})
+    print(f"phase native: library {os.path.basename(native.build_info['path'])}"
+          f" (g++ {native.build_info['seconds']:.3f} s, 0 when an earlier "
+          f"build was loaded); GFNI/AVX-512 {simd}; host CPU "
+          f"{_host_cpu()!r}, {os.cpu_count()} cores; OpenMP runtimes "
+          f"mapped: {omp}")
+    rng = np.random.default_rng(SEED + 1)
+    mat = gf256.rs_vandermonde_matrix(8, 4)[8:]
+    chunks = rng.integers(0, 256, (8, 65536), dtype=np.uint8)
+    want = gf256.host_apply(mat, chunks)
+    check(np.array_equal(native.gf_matrix_apply(mat, chunks), want),
+          "native gf_matrix_apply differs from gf256.host_apply")
+    check(np.array_equal(native.gf_matrix_apply(mat, chunks,
+                                                force_scalar=True), want),
+          "native scalar gf_matrix_apply differs from gf256.host_apply")
+    rules, _ = crush_maps()
+    m = rules[0][1]
+    root = m.bucket(m.rules[rules[0][2]].steps[0].arg1)
+    items = np.asarray(root.items, np.int64)
+    weights = np.asarray(root.item_weights, np.int64)
+    weights[5] = 0
+    xs = rng.integers(0, 2**32, draw_inputs, dtype=np.int64)
+    rs = rng.integers(0, 6, draw_inputs, dtype=np.int64)
+    saved = ck._native_mod
+    ck._native_mod = False
+    try:
+        t0 = time.perf_counter()
+        want = ck._straw2_draw(items, weights, xs, rs)
+        numpy_s = time.perf_counter() - t0
+    finally:
+        ck._native_mod = saved
+    ln = ck._ln()
+    rows_i = np.broadcast_to(items, (draw_inputs, items.size))
+    rows_w = np.broadcast_to(weights, (draw_inputs, items.size))
+    t0 = time.perf_counter()
+    got_rows = native.straw2_winner_rows(rows_i, rows_w, xs, rs, ln)
+    rows_s = time.perf_counter() - t0
+    got_shared = native.straw2_winner_shared(items, weights, xs, rs, ln)
+    check(np.array_equal(got_rows, want) and np.array_equal(got_shared, want),
+          "native straw2 winners differ from the numpy draw")
+    print(f"phase native: gf_matrix_apply [4, 8] x [8, 65536] equal to "
+          f"gf256.host_apply (SIMD and scalar); straw2_winner_rows and "
+          f"_shared over the {items.size}-host root at {draw_inputs} inputs "
+          f"equal the numpy draw (rows {rows_s * 1e3:.3f} ms, numpy "
+          f"{numpy_s * 1e3:.3f} ms, host clock)")
+    q = ECBatchQueue(Context("osd.0"), mode="off", device=dev)
+    out = {"gfni_avx512": simd, "host_cpu": _host_cpu(),
+           "build_s": native.build_info["seconds"], "queue_host": []}
+    try:
+        for nbytes in (16 << 10, 64 << 10):
+            c = rng.integers(0, 256, (8, nbytes // 8), dtype=np.uint8)
+            check(np.array_equal(q._host_apply(mat, c, nbytes),
+                                 gf256.host_apply(mat, c)),
+                  "the queue's host path differs from gf256.host_apply")
+            nat_ms = _median_s(lambda: q._host_apply(mat, c, nbytes)) * 1e3
+            np_ms = _median_s(lambda: gf256.host_apply(mat, c)) * 1e3
+            out["queue_host"].append({"bytes": nbytes, "native_ms": nat_ms,
+                                      "numpy_ms": np_ms})
+            print(f"phase native: the queue's host path, RS k=8 m=4, "
+                  f"{nbytes >> 10} KiB request: native {nat_ms:.4f} ms "
+                  f"({nbytes / nat_ms / 1e6:.3f} GB/s), numpy "
+                  f"{np_ms:.4f} ms ({nbytes / np_ms / 1e6:.3f} GB/s); "
+                  f"host clock, host of card {smi}")
+    finally:
+        asyncio.run(q.stop())
+    out["crush_host"] = host_engine_rows(
+        sizes, plain=False, log=lambda line: print(
+            f"phase native: CRUSH host engine {line} (host clock, host of "
+            f"card {smi})"))
+    return out
+
+
+def _max_repair(np, plugin, prof, n, k):
+    """The largest number of lost chunks some pattern of ``prof`` still
+    repairs, and that pattern with the most data chunks lost (the first
+    in order), found on a small object with the CPU codec."""
+    from ceph_tpu_torch.ec import ErasureCodeError, factory
+    import itertools
+    codec = factory(plugin, prof, device="cpu")
+    small = codec.encode(set(range(n)), bytes(range(256)) * k)
+    for t in range(n, 0, -1):
+        best = None
+        for lost in itertools.combinations(range(n), t):
+            try:
+                codec.decode(set(lost), {i: c for i, c in small.items()
+                                         if i not in lost})
+            except ErasureCodeError:
+                continue
+            data_lost = sum(i < k for i in lost)
+            if best is None or data_lost > best[0]:
+                best = (data_lost, set(lost))
+        if best is not None:
+            return best[1]
+    raise SmokeFailure(f"{plugin} {prof}: no pattern repairs")
+
+
+LRC_SHEC = (("lrc", "k=4 m=2 l=3", {"k": "4", "m": "2", "l": "3"}),
+            ("shec", "k=4 m=3 c=2", {"k": "4", "m": "3", "c": "2"}))
+
+
+def lrc_shec_phase(np, kernel, dev, smi, objects):
+    """Ceph's documented LRC and SHEC profiles on the card: every object
+    through encode, then decode with one data chunk lost (for LRC from
+    its local group alone, fewer than k chunks), then with the most
+    losses each profile repairs; every chunk bit-exact against the same
+    codec on the CPU; the apply kernel's launches counted per step."""
+    from ceph_tpu_torch.ec import factory
+    total = sum(len(o) for o in objects)
+    out = {}
+    for plugin, label, prof in LRC_SHEC:
+        card = factory(plugin, prof, device=dev)
+        cpu = factory(plugin, prof, device="cpu")
+        k, n = card.k, card.get_chunk_count()
+        everyone = set(range(n))
+        local = card.minimum_to_decode({0}, everyone - {0})
+        worst = _max_repair(np, plugin, prof, n, k)
+        steps, launches, walls = {}, {}, {}
+        kernel.gf_apply_launches = 0
+        t0 = time.perf_counter()
+        steps["encode"] = [card.encode(everyone, o) for o in objects]
+        walls["encode"] = time.perf_counter() - t0
+        launches["encode"] = kernel.gf_apply_launches
+        cases = {"decode 1 data lost": ({0}, lambda ch: {
+                     i: ch[i] for i in local}),
+                 f"decode {len(worst)} lost {sorted(worst)}": (worst,
+                     lambda ch: {i: c for i, c in ch.items()
+                                 if i not in worst})}
+        for name, (lost, have) in cases.items():
+            kernel.gf_apply_launches = 0
+            t0 = time.perf_counter()
+            steps[name] = [card.decode(lost, have(ch))
+                           for ch in steps["encode"]]
+            walls[name] = time.perf_counter() - t0
+            launches[name] = kernel.gf_apply_launches
+        for name in steps:
+            check(launches[name] > 0, f"{plugin} {name}: no gf_apply launch")
+        # the plain version: the same codec on the CPU, chunk for chunk
+        t0 = time.perf_counter()
+        for o, ch in zip(objects, steps["encode"]):
+            want = cpu.encode(everyone, o)
+            check(all(np.array_equal(ch[i], want[i]) for i in everyone),
+                  f"{plugin}: a card chunk differs from the CPU codec's")
+        for name, (lost, have) in cases.items():
+            for ch, got in zip(steps["encode"], steps[name]):
+                want = cpu.decode(lost, have(ch))
+                check(all(np.array_equal(got[i], want[i])
+                          and np.array_equal(got[i], ch[i]) for i in lost),
+                      f"{plugin} {name}: a rebuilt chunk differs from the "
+                      f"CPU codec's or the original")
+        cpu_s = time.perf_counter() - t0
+        check(plugin != "lrc" or len(local) < k,
+              f"lrc local repair reads {len(local)} chunks, not fewer "
+              f"than k={k}")
+        for name in steps:
+            print(f"phase {plugin} {label}: {name}: {len(objects)} x "
+                  f"{len(objects[0]) >> 20} MiB objects in "
+                  f"{walls[name]:.4f} s ({total / walls[name] / 1e9:.3f} "
+                  f"GB/s of object data), gf_apply launches "
+                  f"{launches[name]}; card {smi}")
+        print(f"phase {plugin} {label}: every chunk equals the CPU codec's "
+              f"(checked in {cpu_s:.1f} s); one lost data chunk read "
+              f"{sorted(local)} ({len(local)} chunks, k={k}); the most "
+              f"losses repaired: {len(worst)}")
+        out[plugin] = {"launches": launches, "walls": walls,
+                       "local_read": sorted(local), "worst": sorted(worst)}
+    return out
+
+
+def narrow_k1_times(torch, np, kernel, dev, smi, flush, L=1 << 20):
+    """gf_apply at the matrices shec and LRC launch for a 4 MiB object
+    (k=4: 1 MiB chunks), L2 flushed, beside the bytes bound."""
+    from ceph_tpu_torch.ec import factory
+    shec = factory("shec", LRC_SHEC[1][2], device="cpu")
+    lrc = factory("lrc", LRC_SHEC[0][2], device="cpu")
+    mats = [("shec encode", shec.generator[shec.k:])]
+    mats += [(f"lrc layer {i} ({'global' if i == 0 else 'local'})",
+              layer.codec.generator[layer.codec.k:])
+             for i, layer in enumerate(lrc.layers)]
+    rows = []
+    for label, mat in mats:
+        r, k = mat.shape
+        ops = kernel.from_reference_matrix(mat, dev)
+        data = torch.from_numpy(np.random.default_rng(r * 7 + k).integers(
+            0, 256, (k, L), dtype=np.uint8)).to(dev)
+        check(torch.equal(kernel.gf_apply(ops, data),
+                          kernel.gf_apply_plain(ops.bitmat, data)),
+              f"gf_apply at {label} differs from the plain version")
+        ms = median_ms(torch, lambda: kernel.gf_apply(ops, data), 25, flush)
+        b_ms = (k + r) * L / HBM_BYTES_PER_S * 1e3
+        rows.append({"shape": label, "k": k, "r": r, "L": L, "ms": ms,
+                     "bound_ms": b_ms, "share": b_ms / ms})
+        print(f"phase timing: gf_apply at {label} [{k}, {L}] -> [{r}, {L}]"
+              f": {ms:.4f} ms, bytes bound {b_ms:.4f} ms, "
+              f"{b_ms / ms * 100:.1f}% of it; equal to the plain version; "
+              f"card {smi}")
+    return rows
+
+
+def crushtool_phase(np, dev, smi, n_inputs=CRUSH_N, window=65536):
+    """crushtool on phase 7's 1024-OSD map: -d, then -c back to equal
+    bytes; --test over n_inputs on the default (device) engine; on a
+    window of inputs, the device report equal to the host engine's."""
+    from ceph_tpu_torch.ops import crush_kernel as ck
+    from ceph_tpu_torch.tools import crushtool
+    rules, _ = crush_maps()
+    m = rules[0][1]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "crushmap.bin")
+        with open(path, "wb") as f:
+            f.write(m.to_bytes())
+        txt, back = os.path.join(tmp, "map.txt"), os.path.join(tmp, "b.bin")
+        with contextlib.redirect_stdout(io.StringIO()):
+            check(crushtool.main(["-d", path, "-o", txt]) == 0,
+                  "crushtool -d failed")
+            check(crushtool.main(["-c", txt, "-o", back]) == 0,
+                  "crushtool -c failed")
+        with open(back, "rb") as f:
+            check(f.read() == m.to_bytes(),
+                  "crushtool -d then -c does not give the map's bytes")
+        print(f"phase crushtool: -d / -c of the {m.max_devices}-OSD map "
+              f"({os.path.getsize(txt)} bytes of text) gives its "
+              f"{len(m.to_bytes())} bytes back")
+
+        def run(max_x, *extra):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = crushtool.main(["--test", path, "--min-x", "0",
+                                     "--max-x", str(max_x), "--num-rep",
+                                     "3", "--json", "--device", str(dev),
+                                     *extra])
+            check(rc == 0, f"crushtool --test {extra} exit {rc}")
+            return json.loads(buf.getvalue())
+        ck.crush_map_launches = 0
+        t0 = time.perf_counter()
+        full = run(n_inputs - 1)
+        wall = time.perf_counter() - t0
+        out["launches"] = ck.crush_map_launches
+        check(out["launches"] == 1,
+              f"crushtool --test launched crush_map {out['launches']} times")
+        check(full["inputs"] == n_inputs
+              and full["result_size_histogram"] == {"3": n_inputs},
+              f"crushtool --test report {full}")
+        print(f"phase crushtool --test {n_inputs} inputs (device engine, "
+              f"the default): {full['seconds']} s, "
+              f"{full['mappings_per_sec']} mappings/s (command wall "
+              f"{wall:.3f} s with the build and the report), "
+              f"utilization {full['device_utilization']}, crush_map "
+              f"launches {out['launches']}; card {smi}")
+        dev_rep = run(window - 1)
+        host_rep = run(window - 1, "--engine", "host")
+        strip = [{k: v for k, v in r.items()
+                  if k not in ("seconds", "mappings_per_sec")}
+                 for r in (dev_rep, host_rep)]
+        check(strip[0] == strip[1], "crushtool --test reports differ "
+                                    "between the device and host engines")
+        print(f"phase crushtool --test {window} inputs: the device report "
+              f"({dev_rep['seconds']} s) equals the host engine's "
+              f"({host_rep['seconds']} s) apart from timing; card {smi}")
+    out.update(seconds=full["seconds"], rate=full["mappings_per_sec"],
+               window_device_s=dev_rep["seconds"],
+               window_host_s=host_rep["seconds"])
+    return out
+
+
+def psim_phase(dev, smi, argv=("--osds", "1024", "--hosts", "128", "--pgs",
+                               "32768", "--size", "3", "--objects",
+                               "1000000")):
+    """psim on the device engine and on the host engine: equal reports."""
+    from ceph_tpu_torch.ops import crush_kernel as ck
+    from ceph_tpu_torch.tools import psim
+    reports, walls = {}, {}
+    for engine in ("device", "host"):
+        ck.crush_map_launches = 0
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = psim.main([*argv, "--engine", engine, "--device", str(dev)])
+        walls[engine] = time.perf_counter() - t0
+        check(rc == 0, f"psim --engine {engine} exit {rc}")
+        reports[engine] = buf.getvalue()
+        if engine == "device":
+            launches = ck.crush_map_launches
+    check(launches == 1, f"psim launched crush_map {launches} times")
+    check(reports["device"] == reports["host"],
+          "psim reports differ between the device and host engines")
+    rep = json.loads(reports["device"])
+    print(f"phase psim {' '.join(argv)}: device engine {walls['device']:.3f}"
+          f" s (crush_map launches {launches}), host engine "
+          f"{walls['host']:.3f} s, equal reports; pg per osd "
+          f"{rep['pg_per_osd']}, spread {rep['spread_ratio']:.4f}; card "
+          f"{smi}")
+    return {"launches": launches, "walls": walls}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -701,12 +1055,19 @@ def main() -> int:
     print(f"card: {smi}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
+    from ceph_tpu_torch import native
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+    # the two kernel sources (nvcc) and the native host library (g++),
+    # all started together
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        host_lib = pool.submit(native.available)
         builds = list(pool.map(build, ("gf_apply", "crush_map")))
-    print(f"phase build: both sources in {time.perf_counter() - t0:.3f} s")
+        host_lib.result()
+    print(f"phase build: three sources in {time.perf_counter() - t0:.3f} s")
     for built in builds:
         print(f"  {built.name}: nvcc {built.seconds:.3f} s")
+    print(f"  native host library: g++ {native.build_info['seconds']:.3f} s"
+          f" ({native.build_info['error'] or 'built'})")
     from crush_probe import crush_report, gf_report
     # what the CRUSH kernels issue per straw2 draw, beside the hash's 136
     # operations that the bound counts (1.0625 SM clocks)
@@ -946,7 +1307,38 @@ def main() -> int:
     # -- phase 8: the OSDMap and osdmaptool ----------------------------
     osdmap_launches, pools = osdmap_path(torch, np, dev, smi)
 
-    # -- phase 9: the probe's timing, the kernels line ------------------
+    # -- phase 9: the native host library ------------------------------
+    host = native_phase(np, dev, smi)
+
+    # -- phase 10: the lrc and shec codecs -----------------------------
+    codecs = lrc_shec_phase(np, kernel, dev, smi, objects)
+    del objects
+    for plugin, _, prof in LRC_SHEC:
+        for argv in (["--workload", "encode"],
+                     ["--workload", "decode", "--erasures", "2"]):
+            kernel.gf_apply_launches = 0
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = ec_benchmark.main(argv + [
+                    "--plugin", plugin,
+                    *[a for kv in prof.items() for a in ("-P", "=".join(kv))],
+                    "--size", str(1 << 28), "--json", "--device", "cuda"])
+            check(rc == 0, f"ec_benchmark {plugin} {argv} exit {rc}")
+            check(kernel.gf_apply_launches > 0,
+                  f"ec_benchmark {plugin} {argv} did not launch the kernel")
+            for line in buf.getvalue().strip().splitlines():
+                print(f"phase ec_benchmark {plugin} {argv[1]}: {line}; "
+                      f"gf_apply launches {kernel.gf_apply_launches}; "
+                      f"card {smi}")
+    narrow = narrow_k1_times(torch, np, kernel, dev, smi, flush)
+
+    # -- phase 11: crushtool -------------------------------------------
+    tool = crushtool_phase(np, dev, smi)
+
+    # -- phase 12: psim ------------------------------------------------
+    sim = psim_phase(dev, smi)
+
+    # -- phase 13: the probe's timing, the kernels line -----------------
     cfg0 = kernel.TUNE_SPACE[0]
     k2_ms = median_ms(
         torch, lambda: kernel.gf_apply_checksum(ops, data, cfg0), 25, flush)
@@ -963,13 +1355,20 @@ def main() -> int:
           f"{k2_ops_ms:.4f}), {k2_bound_ms / k2_ms * 100:.1f}% of bound; "
           f"instruction floor {k2_floor_ms:.4f} ms; card {smi}")
 
+    print(json.dumps({"host_paths": {"native": host, "crushtool": tool,
+                                     "psim": sim}}))
     print(json.dumps({"kernels": [{
         "name": "gf_apply",
         "route": "cuda",
         "source": "ceph_tpu_torch/csrc/gf_apply.cu",
         "replaces": "ceph_tpu/ec/kernel.py:135",
         "replaces_function": "_ec_fused_kernel",
-        "launches": launches,
+        "launches": launches + sum(sum(c["launches"].values())
+                                   for c in codecs.values()),
+        "launches_by_path": {"queue": launches} | {
+            f"{plugin} {step}": n for plugin, c in codecs.items()
+            for step, n in c["launches"].items()},
+        "narrow_shapes": narrow,
         "mismatches": mismatches,
         "max_abs_err": max_abs_err,
         "ms": ms,
@@ -1001,7 +1400,12 @@ def main() -> int:
         "source": "ceph_tpu_torch/csrc/crush_map.cu",
         "replaces": "ceph_tpu/ops/crush_kernel.py:1019",
         "replaces_function": "JaxEngine._build (fast_map/full_map)",
-        "launches": crush["map_launches"] + osdmap_launches,
+        "launches": (crush["map_launches"] + osdmap_launches
+                     + tool["launches"] + sim["launches"]),
+        "launches_by_path": {"batch_do_rule_arrays": crush["map_launches"],
+                             "osdmap": osdmap_launches,
+                             "crushtool --test": tool["launches"],
+                             "psim": sim["launches"]},
         "mismatches": crush["map_mismatches"],
         "max_abs_err": crush["map_max_abs_err"],
         "ms": crush["map_ms"],

@@ -8,14 +8,15 @@ subcommand each.
     python3 crush_probe.py gf-ops
     python3 crush_probe.py gf-times
 
-``host-engines`` times the two CPU descents of the port on the chip smoke
+``host-engines`` times the CPU descents of the port on the chip smoke
 test's maps (1024 OSDs, 128 hosts x 8; replicated firstn x3, EC indep x6,
-and firstn x3 behind 16 racks): the numpy host engine
-(``batch_do_rule_arrays(engine="host")``) and the kernel's plain torch
+and firstn x3 behind 16 racks): the host engine
+(``batch_do_rule_arrays(engine="host")``) with its straw2 draws in the
+native host library and in numpy alone, and the kernel's plain torch
 version on the CPU (``engine="device", device="cpu"``), at batch sizes an
 Objecter cork flush or a small pool's priming hands them.  Each time is
-the median of repeated calls through the entry point; the two results
-must be equal.  It runs on any host and times the host's CPU, not a card.
+the median of repeated calls through the entry point; the results must
+be equal.  It runs on any host and times the host's CPU, not a card.
 
 ``sass-ops`` builds ``csrc/crush_map.cu`` (nvcc, sm_90a), disassembles
 the library with ``cuobjdump -sass`` and, for ``crush_straw2_winners``
@@ -78,36 +79,67 @@ def _median_s(fn, min_total_s=0.2, min_reps=5):
     return statistics.median(times)
 
 
-def host_engines(sizes):
-    import torch
+def host_engine_rows(sizes, plain=True, log=print):
+    """Rows of median times of the CPU descents at each batch size on
+    chip_smoke's three rules: the host engine with its native straw2
+    draws (``native_ms``; when the library is built), the host engine in
+    numpy alone (``numpy_ms``) and, with ``plain``, the kernel's plain
+    torch version on the CPU (``plain_torch_ms``).  All results must be
+    equal."""
     from chip_smoke import crush_maps
+    from ceph_tpu_torch import native
     from ceph_tpu_torch.ops import crush_kernel as ck
     rules, w = crush_maps()
     rng = np.random.default_rng(20261017)
-    print(f"cpu: {os.cpu_count()} cores, torch {torch.__version__} with "
-          f"{torch.get_num_threads()} threads")
+    have_native = native.available()
+    saved = ck._native_mod
     rows = []
-    for name, m, rule, size in rules:
-        for n in sizes:
-            xs = rng.integers(0, 2**32, n, dtype=np.int64)
-            host = ck.batch_do_rule_arrays(m, rule, xs, size, w, "host")
-            plain = ck.batch_do_rule_arrays(m, rule, xs, size, w, "device",
-                                            "cpu")
-            if not (np.array_equal(host[0], plain[0])
-                    and (host[1] is None
-                         or np.array_equal(host[1], plain[1]))):
-                raise SystemExit(f"{name} at {n}: the engines differ")
-            h_s = _median_s(lambda: ck.batch_do_rule_arrays(
-                m, rule, xs, size, w, "host"))
-            p_s = _median_s(lambda: ck.batch_do_rule_arrays(
-                m, rule, xs, size, w, "device", "cpu"))
-            row = {"rule": name, "inputs": n, "host_ms": h_s * 1e3,
-                   "plain_torch_ms": p_s * 1e3, "ratio": p_s / h_s}
-            rows.append(row)
-            print(f"{name:20s} {n:6d} inputs: numpy host {h_s * 1e3:9.3f} "
-                  f"ms, plain torch {p_s * 1e3:9.3f} ms "
-                  f"({p_s / h_s:.2f}x)")
-    print(json.dumps({"host_engines": rows}))
+
+    def host(*args):
+        return ck.batch_do_rule_arrays(*args, "host")
+    try:
+        for name, m, rule, size in rules:
+            for n in sizes:
+                xs = rng.integers(0, 2**32, n, dtype=np.int64)
+                args = (m, rule, xs, size, w)
+                ck._native_mod = False
+                want = host(*args)
+                row = {"rule": name, "inputs": n,
+                       "numpy_ms": _median_s(lambda: host(*args)) * 1e3}
+                results = []
+                if have_native:
+                    ck._native_mod = native
+                    results.append(("native", host(*args)))
+                    row["native_ms"] = _median_s(lambda: host(*args)) * 1e3
+                if plain:
+                    results.append(("plain torch", ck.batch_do_rule_arrays(
+                        *args, "device", "cpu")))
+                    row["plain_torch_ms"] = _median_s(
+                        lambda: ck.batch_do_rule_arrays(
+                            *args, "device", "cpu")) * 1e3
+                for label, got in results:
+                    if not (np.array_equal(got[0], want[0])
+                            and (want[1] is None
+                                 or np.array_equal(got[1], want[1]))):
+                        raise SystemExit(f"{name} at {n}: {label} differs "
+                                         f"from the numpy host engine")
+                rows.append(row)
+                log(f"{name:20s} {n:6d} inputs: " + ", ".join(
+                    f"{k[:-3]} {v:9.3f} ms" for k, v in row.items()
+                    if k.endswith("_ms")))
+    finally:
+        ck._native_mod = saved
+    return rows
+
+
+def host_engines(sizes):
+    import torch
+    from ceph_tpu_torch import native
+    print(f"cpu: {os.cpu_count()} cores, torch {torch.__version__} with "
+          f"{torch.get_num_threads()} threads; native library "
+          f"{'built' if native.available() else 'unavailable'}, GFNI/"
+          f"AVX-512 {native.gf_simd_available()}")
+    print(json.dumps({"host_engines": host_engine_rows(sizes)}))
 
 
 # --------------------------------------------------------------- SASS ops

@@ -199,3 +199,44 @@ def test_uniform_and_tunables_round_trip():
     ref = RefCrushMap.from_bytes(raw)
     assert ref.tunables.chooseleaf_stable == 0
     assert ref.to_bytes() == raw and CrushMap.from_bytes(raw) == m
+
+
+@pytest.mark.parametrize("native_draws", [True, False],
+                         ids=["native", "numpy"])
+@pytest.mark.parametrize("n_osds,per_host,racks",
+                         [(24, 2, 0), (24, 2, 3)])
+def test_host_engine_with_and_without_native_matches_reference(
+        monkeypatch, n_osds, per_host, racks, native_draws):
+    """The host engine's straw2 draws go through the native library when
+    it is built (as the reference's do) and through numpy when it is
+    forced off; both equal the reference's host engine.  5000 inputs
+    pass the library's OpenMP threshold (4096 lanes)."""
+    import shutil
+
+    from ceph_tpu.ops import crush_kernel as ref_ck
+    from ceph_tpu_torch import native
+    from ceph_tpu_torch.ops import crush_kernel as ck
+    if native_draws:
+        if shutil.which("g++") is None:
+            pytest.skip("no g++ on this host: the native library cannot "
+                        "build")
+        assert native.available(), native.build_info
+        monkeypatch.setattr(ck, "_native_mod", None)
+        assert ck._native() is native
+    else:
+        monkeypatch.setattr(ck, "_native_mod", False)
+    ref_map, rep, ec = _ref_batch_map(n_osds, per_host, hosts_per_rack=racks)
+    m = to_port(ref_map)
+    xs = np.random.default_rng(n_osds + racks).integers(0, 2**32, 5000,
+                                                        dtype=np.int64)
+    for wname in sorted(WEIGHTS):
+        w = WEIGHTS[wname](n_osds)
+        for rule, size in ((rep, 3), (ec, 6)):
+            want = ref_ck.batch_do_rule_arrays(ref_map, rule, xs, size, w,
+                                               engine="host")
+            got = ck.batch_do_rule_arrays(m, rule, xs, size, w,
+                                          engine="host")
+            assert np.array_equal(got[0], want[0]), (wname, rule)
+            assert (got[1] is None) == (want[1] is None)
+            if want[1] is not None:
+                assert np.array_equal(got[1], want[1])

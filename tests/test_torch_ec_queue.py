@@ -85,6 +85,37 @@ def test_small_lone_request_takes_host_path():
     asyncio.run(run())
 
 
+@pytest.mark.parametrize("L", [512, 4096 + 37, 1 << 16])
+def test_host_apply_goes_through_native(monkeypatch, L):
+    """With the native library built, the queue's host path is the native
+    GF(2^8) apply (as the reference's is) and equals gf256.host_apply;
+    with it unavailable, the numpy apply gives the same bytes."""
+    import shutil
+
+    from ceph_tpu_torch import native
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ on this host: the native library cannot build")
+    assert native.available(), native.build_info
+    rng = np.random.default_rng(L)
+    mat = gen_mat(8, 4)
+    c = rng.integers(0, 256, (8, L), dtype=np.uint8)
+    want = ref_gf256.host_apply(mat, c)
+    calls = []
+    real = native.gf_matrix_apply
+
+    def spy(m, ch, *a, **kw):
+        calls.append(ch.shape)
+        return real(m, ch, *a, **kw)
+    monkeypatch.setattr(native, "gf_matrix_apply", spy)
+    q = make_queue(mode="off")
+    got = q._host_apply(mat, c, c.nbytes)
+    assert calls == [(8, L)] and np.array_equal(got, want)
+    monkeypatch.setattr(native, "available", lambda: False)
+    assert np.array_equal(q._host_apply(mat, c, c.nbytes), want)
+    assert calls == [(8, L)]
+    assert q.perf.dump()["host_requests"] == 2
+
+
 def test_oversize_batch_splits_into_bucket_windows():
     # total lanes beyond the largest bucket: must split into multiple
     # launches, not fail over to the host path

@@ -472,3 +472,78 @@ def test_osdmap_entries_default_to_the_crush_kernel(cuda, tmp_path):
     got = om.map_pgs_batch(1)
     assert ck.crush_map_launches == before + 2
     assert got == om.map_pgs_batch(1, "host")
+
+
+LRC_SHEC = [("lrc", {"k": "4", "m": "2", "l": "3"}, 8),
+            ("shec", {"k": "4", "m": "3", "c": "2"}, 7),
+            ("lrc", {"mapping": "DD_DD_",
+                     "layers": [["DDc___", {}], ["___DDc", {}]]}, 6)]
+
+
+@pytest.mark.parametrize("case", range(len(LRC_SHEC)),
+                         ids=["lrc-kml", "shec", "lrc-layers"])
+def test_lrc_and_shec_on_card_launch_gf_apply(cuda, case):
+    from ceph_tpu_torch.ec import factory
+    plugin, prof, n = LRC_SHEC[case]
+    on_card = factory(plugin, prof, device=cuda)
+    on_cpu = factory(plugin, prof, device="cpu")
+    data = np.random.default_rng(case).integers(
+        0, 256, on_card.k * 100003, dtype=np.uint8).tobytes()
+    before = kernel.gf_apply_launches
+    got = on_card.encode(set(range(n)), data)
+    assert kernel.gf_apply_launches > before
+    want = on_cpu.encode(set(range(n)), data)
+    assert all(np.array_equal(got[i], want[i]) for i in range(n))
+    for lost in ({0}, {0, n - 1}):
+        have = {i: c for i, c in got.items() if i not in lost}
+        before = kernel.gf_apply_launches
+        dec = on_card.decode(lost, have)
+        assert kernel.gf_apply_launches > before
+        for i in lost:
+            assert np.array_equal(dec[i], got[i])
+
+
+def test_crushtool_and_psim_default_to_the_crush_kernel(cuda, tmp_path):
+    import contextlib
+    import io
+    import json
+    from ceph_tpu_torch.ops import crush_kernel as ck
+    from ceph_tpu_torch.tools import crushtool, psim
+    path = str(tmp_path / "cm.bin")
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert crushtool.main(["--build", "256", "--osds-per-host", "8",
+                               "-o", path]) == 0
+    reports = {}
+    for engine, extra in (("device", []), ("host", ["--engine", "host"])):
+        before = ck.crush_map_launches
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert crushtool.main(["--test", path, "--rule", "1",
+                                   "--num-rep", "6", "--max-x", "65535",
+                                   "--json", *extra]) == 0
+        launched = ck.crush_map_launches - before
+        assert launched == (1 if engine == "device" else 0)
+        rep = json.loads(buf.getvalue())
+        reports[engine] = {k: v for k, v in rep.items()
+                           if k not in ("seconds", "mappings_per_sec")}
+    assert reports["device"] == reports["host"]
+    outs = {}
+    for engine in ("device", "host"):
+        before = ck.crush_map_launches
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert psim.main(["--osds", "256", "--hosts", "32", "--pgs",
+                              "8192", "--engine", engine]) == 0
+        assert ck.crush_map_launches - before == (engine == "device")
+        outs[engine] = buf.getvalue()
+    assert outs["device"] == outs["host"]
+
+
+def test_native_library_builds_on_the_card_host(cuda):
+    from ceph_tpu_torch import native
+    assert native.available(), native.build_info
+    rng = np.random.default_rng(9)
+    mat = rng.integers(0, 256, (4, 8), dtype=np.uint8)
+    ch = rng.integers(0, 256, (8, 1 << 16), dtype=np.uint8)
+    assert np.array_equal(native.gf_matrix_apply(mat, ch),
+                          gf256.host_apply(mat, ch))

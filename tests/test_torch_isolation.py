@@ -46,7 +46,9 @@ def test_sources_exist():
     # every subpackage the port has is in the walk
     for mod in ("ec/kernel.py", "crush/mapper.py", "ops/crush_kernel.py",
                 "osd/osdmap.py", "msg/types.py", "tools/osdmaptool.py",
-                "common/encoding.py"):
+                "common/encoding.py", "native/__init__.py", "ec/lrc.py",
+                "ec/shec.py", "crush/compiler.py", "tools/crushtool.py",
+                "tools/psim.py", "common/crc.py", "common/xxhash.py"):
         assert os.path.join(ROOT, "ceph_tpu_torch", mod) in srcs, mod
 
 
