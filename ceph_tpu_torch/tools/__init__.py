@@ -5,4 +5,6 @@
 - crushtool: --build, -d/-c (the text compiler) and --test
 - psim: the placement simulator
 - perf_msgr: the messenger's throughput harness
+- objectstore_tool: offline store surgery (list, info, export, import)
+- kvstore_tool: offline kv surgery over a FileDB
 """

@@ -5,9 +5,9 @@ one CUDA card, from the root of a checkout.
 It drives ceph_tpu_torch's EC write / degraded-read data path, the EC
 variant tuner, CRUSH placement up to the OSDMap and osdmaptool, the lrc
 and shec codecs, crushtool and psim on the card, the native host
-library on its host, and the messenger carrying the card's chunks, and
-fails (exit code 1, no result line) on any
-fault:
+library on its host, the messenger carrying the card's chunks, and the
+port's object stores holding them, and fails (exit code 1, no result
+line) on any fault:
 
   1. prints the card's name and power limit, builds the kernels
      (csrc/gf_apply.cu and csrc/crush_map.cu, one nvcc each, for sm_90a)
@@ -89,10 +89,31 @@ fault:
      through its admin socket; perf_msgr at its defaults and at
      --size 524288; wall, msg/s, MB/s and p50/p99 latency per round
      (host clock);
- 14. times the probe, the descent and the winner grid beside their plain
+ 14. place, encode, store, lose two OSDs, rebuild: an OSDMap of 16 OSDs
+     (one per host, straw2) with a k=8 m=4 EC pool of 128 PGs
+     (chooseleaf indep over hosts) places phase 3's 64 object names in
+     one map_objects_batch(engine="device") call (one crush_map launch);
+     the objects are encoded through ECBatchQueue(mode="on"); each of
+     the 768 chunks is written as ObjectId(name, pool, shard=i) into its
+     PG's shard collection on the BlockStore (crc32c) of acting[i], one
+     store per OSD, through queue_transactions with on_commit, and the
+     phase waits for every commit (callbacks in submission order, no
+     commit thread error); every store is remounted and every chunk read
+     back against the CPU codec's by sha256, with no chunk missing or
+     extra; the two OSDs that hold two data chunks of the most objects
+     are lost, and every lost data chunk is rebuilt through the queue
+     (K1 with the decode matrix) from k chunks read from the other
+     stores; then OSD 0's chunks through KStore, FileStore, MemStore and
+     a zlib BlockStore (which must keep the random chunks raw), each
+     remounted and read back.  D1's and K1's launches are counted from 0
+     around each step, with the span of CUDA events around each wrapper
+     call (host work included, not kernel time); wall and MB/s per step,
+     each store's commit counters and mount seconds (host clock);
+ 15. times the probe, the descent and the winner grid beside their plain
      versions and bounds, and prints the ``kernels`` line (launches by
-     path: the queue, lrc, shec, the messenger's encode; the CRUSH path,
-     the OSDMap, crushtool, psim).
+     path: the queue, lrc, shec, the messenger's and the store's encode,
+     the store's rebuild; the CRUSH path, the OSDMap, crushtool, psim,
+     the store's placement).
 
 The last line of its output is ``{"ok": true, "device": {...}}``.  It
 imports nothing of JAX and nothing of the JAX package.
@@ -1174,6 +1195,54 @@ async def chunk_round(chunks, want, *, keyring=None, inject=0, local=False,
             "perf_dump": dump}
 
 
+def cpu_chunk_digests(objects):
+    """The sha256 of each of the k + m chunks of each object, as the CPU
+    codec (RS k=8 m=4) encodes it: the reference the card's chunks are
+    held against."""
+    import hashlib
+
+    from ceph_tpu_torch.ec import factory
+    cpu = factory("rs", {"k": str(K), "m": str(M)}, device="cpu")
+    out = []
+    for o in objects:
+        ch = cpu.encode(set(range(K + M)), o)
+        out.append([hashlib.sha256(ch[i].tobytes()).digest()
+                    for i in range(K + M)])
+    return out
+
+
+@contextlib.contextmanager
+def device_timer(torch, module, name, on_card):
+    """On a card, replace ``module.name`` by a wrapper that records a
+    pair of CUDA events around each call; yields the list of pairs.  The
+    span between a pair holds the wrapper's host work as well as its
+    kernel."""
+    real, events = getattr(module, name), []
+
+    def timed(*args, **kwargs):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        res = real(*args, **kwargs)
+        e1.record()
+        events.append((e0, e1))
+        return res
+
+    if on_card:
+        setattr(module, name, timed)
+    try:
+        yield events
+    finally:
+        setattr(module, name, real)
+
+
+def events_ms(torch, events):
+    if not events:
+        return 0.0
+    torch.cuda.synchronize()
+    return sum(e0.elapsed_time(e1) for e0, e1 in events)
+
+
 def chunk_costs(data, reps=15):
     """Host-clock medians (ms) of the per-byte steps a cephx TCP round
     takes for one chunk, each alone in this thread: the body encode and
@@ -1215,37 +1284,17 @@ def messenger_phase(np, kernel, dev, smi, objects, tmpdir,
     once, in order), and once more by ms_local_delivery (no body
     encoded); the server's counters read through its admin socket; then
     perf_msgr at each of ``perf_msgr_argv``."""
-    import hashlib
-
     import torch
 
     from ceph_tpu_torch.common.context import Context
     from ceph_tpu_torch.ec import factory, gf256
     from ceph_tpu_torch.osd.ec_queue import ECBatchQueue
-    everyone = set(range(K + M))
     t0 = time.perf_counter()
-    cpu = factory("rs", {"k": str(K), "m": str(M)}, device="cpu")
-    want = []
-    for o in objects:
-        ch = cpu.encode(everyone, o)
-        want += [hashlib.sha256(ch[i].tobytes()).digest()
-                 for i in range(K + M)]
+    want = [d for ds in cpu_chunk_digests(objects) for d in ds]
     cpu_s = time.perf_counter() - t0
     codec = factory("rs", {"k": str(K), "m": str(M)}, device=dev)
     split = [codec.split_data(o) for o in objects]
     gen = gf256.rs_vandermonde_matrix(K, M)
-    real, events = kernel.gf_apply, []
-
-    def timed(ops, data, out=None, config=None):
-        if data.device.type != "cuda":
-            return real(ops, data, out, config)
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        res = real(ops, data, out, config)
-        e1.record()
-        events.append((e0, e1))
-        return res
 
     async def encode():
         q = ECBatchQueue(Context("osd.0"), device=dev,
@@ -1260,14 +1309,10 @@ def messenger_phase(np, kernel, dev, smi, objects, tmpdir,
         finally:
             await q.stop()
 
-    kernel.gf_apply = timed
-    try:
+    with device_timer(torch, kernel, "gf_apply",
+                      dev.type == "cuda") as events:
         parity, enc_wall, launches, qperf = asyncio.run(encode())
-    finally:
-        kernel.gf_apply = real
-    if events:
-        torch.cuda.synchronize()
-    device_ms = sum(e0.elapsed_time(e1) for e0, e1 in events)
+    device_ms = events_ms(torch, events)
     check(qperf["host_requests"] == 0,
           f"{qperf['host_requests']} encodes took the host path")
     if dev.type == "cuda":
@@ -1357,6 +1402,421 @@ def messenger_phase(np, kernel, dev, smi, objects, tmpdir,
                                             "auth_entities")}
                        for label, r in rounds.items()},
             "perf_msgr": harness}
+
+
+STORE_OSDS = 16        # one OSD per host
+STORE_PG_NUM = 128     # Ceph's ~100 PGs per OSD over the pool size: 16 x 100 / 12
+STORE_POOL = 3
+STORE_WAIT_S = 600.0   # bound on the wait for every commit of a step
+#: the commit counters that count (the rest are averages and windows)
+COUNTS = ("commit_batches", "txns", "data_fsyncs", "kv_syncs", "fsyncs",
+          "fsyncs_saved")
+
+
+def store_osdmap():
+    """An OSDMap of STORE_OSDS OSDs, one per host (straw2), with an RS
+    k=8 m=4 EC pool of STORE_PG_NUM PGs whose rule places the 12 chunks by
+    chooseleaf indep over hosts, all built by the port's crush/builder."""
+    from ceph_tpu_torch.crush.builder import (build_hierarchy,
+                                              make_erasure_rule)
+    from ceph_tpu_torch.crush.types import CrushMap
+    from ceph_tpu_torch.msg.types import EntityAddr
+    from ceph_tpu_torch.osd.osdmap import Incremental, OSDMap
+    from ceph_tpu_torch.osd.types import POOL_TYPE_ERASURE, PGPool
+    crush = CrushMap()
+    crush.max_devices = STORE_OSDS
+    build_hierarchy(crush, STORE_OSDS, 1)
+    rule = make_erasure_rule(crush, "ec_rule", size=K + M)
+    m = OSDMap()
+    m.fsid = "chip-smoke-store"
+    m.crush = crush
+    m.set_max_osd(STORE_OSDS)
+    inc = Incremental(1)
+    for o in range(STORE_OSDS):
+        inc.new_up[o] = EntityAddr(f"10.1.0.{o}", 6800, o + 1)
+        inc.new_weight[o] = 0x10000
+    inc.new_pools[STORE_POOL] = PGPool(POOL_TYPE_ERASURE, size=K + M,
+                                       min_size=K + 1, crush_ruleset=rule,
+                                       pg_num=STORE_PG_NUM, ec_profile="k8m4")
+    inc.new_pool_names[STORE_POOL] = "ec84"
+    m.apply_incremental(inc)
+    return m
+
+
+class CommitErrors:
+    """Records what the stores' commit threads log at ERROR: a commit
+    that failed or a callback that raised."""
+
+    def __init__(self):
+        import logging
+        self.records = []
+        self.logger = logging.getLogger("ceph-tpu-torch.store.commit")
+        self.handler = logging.Handler(logging.ERROR)
+        self.handler.emit = self.records.append
+
+    def __enter__(self):
+        self.logger.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+
+    def check(self, where):
+        check(not self.records,
+              f"{where}: the commit thread logged "
+              f"{[r.getMessage() for r in self.records]}")
+
+
+async def commit_all(stores, items):
+    """Queue one write transaction per item ``(store index, cid, oid,
+    data)`` through ``queue_transactions`` with an on_commit callback, as
+    the OSD's write path does, and wait for every commit.  Fails when a
+    commit thread dies, when the wait passes STORE_WAIT_S or when a
+    store's callbacks come out of submission order.  Returns the seconds
+    to apply and to the last commit (host clock)."""
+    from ceph_tpu_torch.store import Transaction
+    loop = asyncio.get_running_loop()
+    done = loop.create_future()
+    order = [[] for _ in stores]
+    left = [len(items)]
+
+    def committed(where, idx):
+        order[where].append(idx)
+        left[0] -= 1
+        if left[0] == 0 and not done.done():
+            done.set_result(time.perf_counter())
+
+    t0 = time.perf_counter()
+    for idx, (where, cid, oid, data) in enumerate(items):
+        stores[where].queue_transactions(
+            [Transaction().write(cid, oid, 0, data)],
+            on_commit=lambda w=where, i=idx: committed(w, i))
+    applied = time.perf_counter() - t0
+    if not items:
+        done.set_result(t0)
+    while not done.done():
+        await asyncio.wait({done}, timeout=0.05)
+        dead = [i for i, s in enumerate(stores)
+                if getattr(s, "_committer", None) is not None
+                and s._committer.dead]
+        check(not dead, f"the commit threads of stores {dead} died")
+        check(time.perf_counter() - t0 < STORE_WAIT_S,
+              f"{left[0]} commits still pending after {STORE_WAIT_S} s")
+    for s in stores:
+        s.sync()
+    for where, got in enumerate(order):
+        check(got == [i for i, it in enumerate(items) if it[0] == where],
+              f"store {where}: commits out of submission order")
+    return applied, done.result() - t0
+
+
+def store_phase(np, kernel, dev, smi, objects, tmpdir, engine="device"):
+    """Place, encode, store, lose two OSDs, rebuild: the objects' names
+    placed by one ``map_objects_batch`` call (D1 on a card), the objects
+    encoded through ECBatchQueue (K1), every chunk written as
+    ``ObjectId(name, pool, shard=i)`` into its PG's shard collection on
+    the BlockStore of ``acting[i]`` (one per OSD, crc32c), remounted and
+    read back against the CPU codec's chunks by sha256; then the two OSDs
+    that together hold two data chunks of the most objects are lost and
+    every lost data chunk is rebuilt through the queue (K1 with the
+    decode matrix) from k chunks read from the stores that remain; last,
+    OSD 0's chunks through KStore, FileStore, MemStore and a zlib
+    BlockStore, each remounted and read back."""
+    import hashlib
+
+    import torch
+
+    from ceph_tpu_torch import native
+    from ceph_tpu_torch.common.context import Context
+    from ceph_tpu_torch.ec import factory, gf256
+    from ceph_tpu_torch.ops import crush_kernel as ck
+    from ceph_tpu_torch.osd.ec_queue import ECBatchQueue
+    from ceph_tpu_torch.store import (CollectionId, FileStore, MemStore,
+                                      ObjectId, Transaction)
+    from ceph_tpu_torch.store.blockstore import BlockStore
+    from ceph_tpu_torch.store.kstore import KStore
+    on_card = dev.type == "cuda"
+    if on_card:
+        check(native.available(), "the native library did not build, so "
+              "the stores' crc32c would take its pure-Python path")
+    n_obj, width = len(objects), K + M
+    mib = n_obj * len(objects[0]) / 1e6
+    names = [f"rbd_data.smoke.{i:016x}" for i in range(n_obj)]
+    walls, out = {}, {}
+    t_phase = t0 = time.perf_counter()
+    want = cpu_chunk_digests(objects)
+    cpu_s = time.perf_counter() - t0
+    want_of = {(names[i], s): w for i, ws in enumerate(want)
+               for s, w in enumerate(ws)}
+
+    # 1. place: one D1 launch for every name
+    m = store_osdmap()
+    ck.crush_map_launches = 0
+    with device_timer(torch, ck, "crush_map", on_card) as d1_events:
+        t0 = time.perf_counter()
+        placed = m.map_objects_batch(STORE_POOL, names, engine=engine,
+                                     device=dev)
+        walls["place"] = time.perf_counter() - t0
+    out["d1_launches"] = ck.crush_map_launches
+    out["d1_ms"] = events_ms(torch, d1_events)
+    if on_card:
+        check(out["d1_launches"] == 1 == len(d1_events),
+              f"placement: {out['d1_launches']} crush_map launches")
+    for pg, acting, _ in placed:
+        check(len(acting) == width and len(set(acting)) == width
+              and all(0 <= o < STORE_OSDS for o in acting),
+              f"{pg}: acting {acting} is not {width} distinct OSDs")
+    print(f"phase store place: {n_obj} names -> {len({p for p, _, _ in placed})}"
+          f" of {STORE_PG_NUM} PGs on {STORE_OSDS} OSDs in one map_objects_batch "
+          f"(engine {engine}): {walls['place']:.4f} s, crush_map launches "
+          f"{out['d1_launches']}, wrapper span {out['d1_ms']:.4f} ms (CUDA "
+          f"events around the call, host work included); card {smi}")
+
+    def cid(pg, shard):
+        return CollectionId.pg(STORE_POOL, pg.seed, shard)
+
+    def oid(i, shard):
+        return ObjectId(names[i], pool=STORE_POOL, shard=shard)
+
+    # 2. encode through the queue: K1
+    codec = factory("rs", {"k": str(K), "m": str(M)}, device=dev)
+    split = [codec.split_data(o) for o in objects]
+    gen = gf256.rs_vandermonde_matrix(K, M)
+    mode = "on" if on_card else "force"
+
+    async def through_queue(jobs):
+        q = ECBatchQueue(Context("osd.0"), device=dev, mode=mode)
+        try:
+            kernel.gf_apply_launches = 0
+            t = time.perf_counter()
+            res = await asyncio.gather(*[q.apply(mat, d) for mat, d in jobs])
+            return (res, time.perf_counter() - t, kernel.gf_apply_launches,
+                    q.perf.dump())
+        finally:
+            await q.stop()
+
+    def queue_step(label, jobs):
+        with device_timer(torch, kernel, "gf_apply", on_card) as events:
+            res, wall, launches, qperf = asyncio.run(through_queue(jobs))
+        check(qperf["host_requests"] == 0,
+              f"{label}: {qperf['host_requests']} requests took the host "
+              f"path")
+        if on_card:
+            check(launches > 0 and launches == qperf["device_launches"]
+                  == len(events),
+                  f"{label}: gf_apply launches {launches}, queue "
+                  f"device_launches {qperf['device_launches']}, timed "
+                  f"{len(events)}")
+        walls[label] = wall
+        out[f"{label}_launches"] = launches
+        out[f"{label}_ms"] = events_ms(torch, events)
+        return res
+
+    parity = queue_step("encode", [(gen[K:], s) for s in split])
+    chunks = [[row.tobytes() for row in (*s, *p)]
+              for s, p in zip(split, parity)]
+    del split, parity
+    print(f"phase store encode: {n_obj} x {len(objects[0]) >> 10} KiB -> "
+          f"{n_obj * width} chunks of {len(chunks[0][0]) >> 10} KiB through "
+          f"ECBatchQueue on {dev}: {walls['encode']:.4f} s, "
+          f"{mib / walls['encode']:.1f} MB/s of object data, gf_apply "
+          f"launches {out['encode_launches']}, wrapper spans "
+          f"{out['encode_ms']:.4f} ms (CUDA events around each call); CPU codec's sha256s "
+          f"in {cpu_s:.2f} s; card {smi}")
+
+    def expected(share):
+        return {(c.name, o.name, o.shard) for _, c, o, _ in share}
+
+    def listing(s):
+        return {(c.name, o.name, o.shard) for c in s.list_collections()
+                for o in s.collection_list(c)}
+
+    def mkcolls(s, share):
+        t = Transaction()
+        for c in sorted({c for _, c, _, _ in share}, key=lambda c: c.name):
+            t.create_collection(c)
+        s.apply_transaction(t)
+
+    def read_back(stores, items):
+        t = time.perf_counter()
+        bad = [(c, o) for w, c, o, _ in items
+               if hashlib.sha256(stores[w].read(c, o)).digest()
+               != want_of[o.name, o.shard]]
+        wall = time.perf_counter() - t
+        check(not bad, f"{len(bad)} chunks read back differ from the CPU "
+                       f"codec's, first {bad[:3]}")
+        return wall
+
+    def counters_since(now, before):
+        return {k: v - before.get(k, 0) if k in COUNTS else v
+                for k, v in now.items()}
+
+    def counters_line(c):
+        if not c:
+            return "no commit thread (each call returns after its fsync)"
+        return (f"batches {c.get('commit_batches', 0)}, txns "
+                f"{c.get('txns', 0)}, fsyncs {c.get('fsyncs', 0)}, fsyncs "
+                f"saved {c.get('fsyncs_saved', 0)}")
+
+    # 3. store: every chunk on its OSD's BlockStore
+    items = [(osd, cid(pg, s), oid(i, s), chunks[i][s])
+             for i, (pg, acting, _) in enumerate(placed)
+             for s, osd in enumerate(acting)]
+    stored_mb = sum(len(it[3]) for it in items) / 1e6
+    paths = [os.path.join(tmpdir, f"osd.{o}") for o in range(STORE_OSDS)]
+    stores = []
+    with CommitErrors() as errors:
+        try:
+            for path in paths:
+                stores.append(BlockStore(path, csum_type="crc32c"))
+                stores[-1].mkfs()
+                stores[-1].mount()
+            for o, s in enumerate(stores):
+                mkcolls(s, [it for it in items if it[0] == o])
+            base = [s.commit_counters() for s in stores]
+            applied, walls["store"] = asyncio.run(commit_all(stores, items))
+            errors.check("store")
+            print(f"phase store write: {len(items)} chunks ({stored_mb:.1f} "
+                  f"MB) into {STORE_OSDS} BlockStores (crc32c) through "
+                  f"queue_transactions with on_commit: applied in "
+                  f"{applied:.4f} s, all committed in {walls['store']:.4f} s"
+                  f", {stored_mb / walls['store']:.1f} MB/s (host clock); "
+                  f"card {smi}")
+            out["counters"] = [counters_since(s.commit_counters(), b)
+                               for s, b in zip(stores, base)]
+            for o, c in enumerate(out["counters"]):
+                print(f"  osd.{o}: {sum(it[0] == o for it in items)} chunks;"
+                      f" {counters_line(c)}; txns per batch "
+                      f"{c.get('txns_per_batch', 0):.2f}, gather window "
+                      f"{c.get('gather_window_ms', 0)} ms")
+
+            # 4. remount every store and read every chunk back
+            out["mount_s"] = []
+            for o, path in enumerate(paths):
+                stores[o].umount()
+                t = time.perf_counter()
+                stores[o] = BlockStore(path, csum_type="crc32c")
+                stores[o].mount()
+                out["mount_s"].append(time.perf_counter() - t)
+            for o, s in enumerate(stores):
+                share = [it for it in items if it[0] == o]
+                check(listing(s) == expected(share),
+                      f"osd.{o}: chunks missing or extra after the remount")
+            walls["read"] = read_back(stores, items)
+            print(f"phase store remount: {STORE_OSDS} BlockStores mounted in "
+                  f"{sum(out['mount_s']):.4f} s (osd.0-{STORE_OSDS - 1}: "
+                  f"{', '.join(f'{x:.4f}' for x in out['mount_s'])} s); "
+                  f"{len(items)} chunks read back in {walls['read']:.4f} s, "
+                  f"{stored_mb / walls['read']:.1f} MB/s, each equal to the "
+                  f"CPU codec's (host clock); card {smi}")
+
+            # 5. lose the two OSDs that hold two data chunks of the most
+            # objects together; rebuild those chunks from the others
+            def both(a, b):
+                return sum(a in act[:K] and b in act[:K]
+                           for _, act, _ in placed)
+            lost = max(((a, b) for a in range(STORE_OSDS)
+                        for b in range(a + 1, STORE_OSDS)),
+                       key=lambda p: (both(*p), -p[0], -p[1]))
+            out["lost"] = list(lost)
+            out["objects_losing_two_data"] = both(*lost)
+            check(out["objects_losing_two_data"] > 0,
+                  "no two OSDs hold two data chunks of one object")
+            for o in lost:
+                stores[o].umount()
+            t = time.perf_counter()
+            jobs, wants = [], []
+            for i, (pg, acting, _) in enumerate(placed):
+                present = [s for s in range(width)
+                           if acting[s] not in lost][:K]
+                gone = [s for s in range(K) if acting[s] in lost]
+                rows = np.stack([np.frombuffer(
+                    stores[acting[s]].read(cid(pg, s), oid(i, s)),
+                    dtype=np.uint8) for s in present])
+                if gone:
+                    jobs.append((codec.decode_matrix_for(present, gone),
+                                 rows))
+                    wants.append([want[i][s] for s in gone])
+            walls["rebuild_read"] = time.perf_counter() - t
+            rebuilt = queue_step("rebuild", jobs)
+            bad = sum(hashlib.sha256(row.tobytes()).digest() != w
+                      for res, ws in zip(rebuilt, wants)
+                      for row, w in zip(res, ws))
+            check(bad == 0, f"{bad} rebuilt chunks differ from the CPU "
+                            f"codec's")
+            n_lost = sum(len(ws) for ws in wants)
+            print(f"phase store rebuild: osd.{lost[0]} and osd.{lost[1]} "
+                  f"lost; {n_obj * K} chunks read from the other stores in "
+                  f"{walls['rebuild_read']:.4f} s; {n_lost} lost data chunks"
+                  f" of {len(jobs)} objects ({out['objects_losing_two_data']}"
+                  f" lost two) rebuilt through ECBatchQueue in "
+                  f"{walls['rebuild']:.4f} s, gf_apply launches "
+                  f"{out['rebuild_launches']}, wrapper spans "
+                  f"{out['rebuild_ms']:.4f} ms (CUDA events around each call), each equal to "
+                  f"the CPU codec's; card {smi}")
+            errors.check("rebuild")
+        finally:
+            for s in stores:
+                if s.mounted:
+                    s.umount()
+
+        # 6. OSD 0's chunks through the other backends and compression
+        share = [(0, c, o, d) for w, c, o, d in items if w == 0]
+        check(share, "osd.0 holds no chunk")
+        share_mb = sum(len(it[3]) for it in share) / 1e6
+        kinds = {"kstore": KStore, "filestore": FileStore,
+                 "memstore": MemStore,
+                 "blockstore zlib": lambda p: BlockStore(
+                     p, compression="zlib", csum_type="crc32c")}
+        out["share"] = {}
+        for label, make in kinds.items():
+            path = os.path.join(tmpdir, "osd.0-" + label.replace(" ", "-"))
+            s = make(path)
+            s.mkfs()
+            s.mount()
+            try:
+                mkcolls(s, share)
+                base = s.commit_counters()
+                applied, wall = asyncio.run(commit_all([s], share))
+                errors.check(label)
+                counters = counters_since(s.commit_counters(), base)
+                s.umount()
+                t = time.perf_counter()
+                if label != "memstore":
+                    s = make(path)      # a fresh instance reads the disk
+                s.mount()
+                mount = time.perf_counter() - t
+                check(listing(s) == expected(share),
+                      f"{label}: chunks missing or extra after the remount")
+                read = read_back([s], share)
+                tagged = None
+                if label == "blockstore zlib":
+                    tagged = sum(bool(e.alg) for _, c, o, _ in share
+                                 for e in s._get_onode(c, o).extents)
+                    check(tagged == 0, f"{label}: {tagged} extents of EC "
+                                       f"chunks stored compressed")
+            finally:
+                s.umount()
+            out["share"][label] = {"write_s": wall, "mount_s": mount,
+                                   "read_s": read, "counters": counters,
+                                   "compressed_extents": tagged}
+            print(f"phase store osd.0 on {label}: {len(share)} chunks "
+                  f"({share_mb:.1f} MB) committed in {wall:.4f} s "
+                  f"({share_mb / wall:.1f} MB/s), {counters_line(counters)};"
+                  f" mounted in {mount:.4f} s; read back in {read:.4f} s "
+                  f"({share_mb / read:.1f} MB/s), each equal to the CPU "
+                  f"codec's"
+                  + ("" if tagged is None else
+                     f"; extents with a compression tag: {tagged}")
+                  + f" (host clock); card {smi}")
+    out["walls"] = walls
+    out["phase_s"] = time.perf_counter() - t_phase
+    kernel_ms = out["d1_ms"] + out["encode_ms"] + out["rebuild_ms"]
+    print(f"phase store: {out['phase_s']:.3f} s in all (host clock); "
+          f"crush_map and gf_apply wrapper spans {kernel_ms:.4f} ms "
+          f"(host work included), {kernel_ms / 10 / out['phase_s']:.4f} % "
+          f"of it; card {smi}")
+    return out
 
 
 def main() -> int:
@@ -1675,9 +2135,16 @@ def main() -> int:
         msgr = messenger_phase(np, kernel, dev, smi, objects, tmpdir)
     finally:
         shutil.rmtree(tmpdir, ignore_errors=True)
+
+    # -- phase 14: place, encode, store, lose two OSDs, rebuild ----------
+    tmpdir = tempfile.mkdtemp(prefix="smoke-store")
+    try:
+        store = store_phase(np, kernel, dev, smi, objects, tmpdir)
+    finally:
+        shutil.rmtree(tmpdir, ignore_errors=True)
     del objects
 
-    # -- phase 14: the probe's timing, the kernels line -----------------
+    # -- phase 15: the probe's timing, the kernels line -----------------
     cfg0 = kernel.TUNE_SPACE[0]
     k2_ms = median_ms(
         torch, lambda: kernel.gf_apply_checksum(ops, data, cfg0), 25, flush)
@@ -1695,7 +2162,8 @@ def main() -> int:
           f"instruction floor {k2_floor_ms:.4f} ms; card {smi}")
 
     print(json.dumps({"host_paths": {"native": host, "crushtool": tool,
-                                     "psim": sim, "messenger": msgr}}))
+                                     "psim": sim, "messenger": msgr,
+                                     "store": store}}))
     print(json.dumps({"kernels": [{
         "name": "gf_apply",
         "route": "cuda",
@@ -1703,11 +2171,14 @@ def main() -> int:
         "replaces": "ceph_tpu/ec/kernel.py:135",
         "replaces_function": "_ec_fused_kernel",
         "launches": launches + msgr["launches"] + sum(
-            sum(c["launches"].values()) for c in codecs.values()),
+            sum(c["launches"].values()) for c in codecs.values())
+        + store["encode_launches"] + store["rebuild_launches"],
         "launches_by_path": {"queue": launches} | {
             f"{plugin} {step}": n for plugin, c in codecs.items()
             for step, n in c["launches"].items()} | {
-            "messenger encode": msgr["launches"]},
+            "messenger encode": msgr["launches"],
+            "store encode": store["encode_launches"],
+            "store rebuild": store["rebuild_launches"]},
         "narrow_shapes": narrow,
         "mismatches": mismatches,
         "max_abs_err": max_abs_err,
@@ -1741,11 +2212,13 @@ def main() -> int:
         "replaces": "ceph_tpu/ops/crush_kernel.py:1019",
         "replaces_function": "JaxEngine._build (fast_map/full_map)",
         "launches": (crush["map_launches"] + osdmap_launches
-                     + tool["launches"] + sim["launches"]),
+                     + tool["launches"] + sim["launches"]
+                     + store["d1_launches"]),
         "launches_by_path": {"batch_do_rule_arrays": crush["map_launches"],
                              "osdmap": osdmap_launches,
                              "crushtool --test": tool["launches"],
-                             "psim": sim["launches"]},
+                             "psim": sim["launches"],
+                             "store placement": store["d1_launches"]},
         "mismatches": crush["map_mismatches"],
         "max_abs_err": crush["map_max_abs_err"],
         "ms": crush["map_ms"],

@@ -1,6 +1,6 @@
 """Card-only checks of the port: the CUDA kernel against its plain version
-on the card, the batch queue's device path on CUDA, and the messenger
-carrying the kernel's chunks.
+on the card, the batch queue's device path on CUDA, the messenger
+carrying the kernel's chunks, and the stores holding them.
 
 Marked ``gpu``.  Whether a card is present is decided inside the
 ``cuda`` fixture, so every worker collects the same tests; without a
@@ -566,3 +566,20 @@ def test_messenger_round_trip_of_k1_chunks_on_card(cuda, tmp_path):
     for r in out["rounds"].values():
         assert (r["n"], r["mismatches"], r["duplicates"]) == (96, 0, 0)
     assert out["rounds"]["ms_local_delivery"]["encode_calls"] == 0
+
+
+def test_store_phase_of_k1_chunks_on_card(cuda, tmp_path):
+    """chip_smoke's store phase at a small size: one crush_map launch
+    places the objects, K1 encodes them into per-OSD BlockStores, every
+    chunk reads back after a remount, two lost OSDs are rebuilt by K1,
+    and OSD 0's chunks round-trip through the other backends."""
+    import chip_smoke
+    rng = np.random.default_rng(14)
+    objects = [rng.integers(0, 256, 1 << 18, dtype=np.uint8).tobytes()
+               for _ in range(16)]
+    out = chip_smoke.store_phase(np, kernel, cuda, "card", objects,
+                                 str(tmp_path))
+    assert out["d1_launches"] == 1 and out["d1_ms"] > 0
+    assert out["encode_launches"] > 0 and out["rebuild_launches"] > 0
+    assert out["objects_losing_two_data"] > 0
+    assert out["share"]["blockstore zlib"]["compressed_extents"] == 0

@@ -1,13 +1,14 @@
 """The port imports neither JAX nor the JAX package.
 
-Every module of ceph_tpu_torch/, chip_smoke.py and crush_probe.py is
-walked with ``ast``:
+Every module of ceph_tpu_torch/, chip_smoke.py, crush_probe.py and
+smoke_walls.py is walked with ``ast``:
 no ``import jax``/``jaxlib``/``ceph_tpu`` (``ceph_tpu_torch`` is the port
 itself).  Then the package is imported in a fresh interpreter, which
 must end with no ``jax`` in ``sys.modules``.
 """
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -26,11 +27,18 @@ SLICE6 = ("common/envutil.py", "common/config.py", "common/logging.py",
           "auth/keyring.py", "auth/cephx.py", "msg/__init__.py",
           "msg/payload.py", "msg/message.py", "msg/messenger.py",
           "tools/perf_msgr.py", "version.py")
+#: the compressor/ and store/ modules and the two store tools
+SLICE7 = ("compressor/registry.py", "compressor/__init__.py",
+          "store/types.py", "store/wal.py", "store/kv.py", "store/commit.py",
+          "store/objectstore.py", "store/memstore.py", "store/filestore.py",
+          "store/kstore.py", "store/blockstore.py", "store/__init__.py",
+          "tools/objectstore_tool.py", "tools/kvstore_tool.py")
 
 
 def _sources():
     out = [os.path.join(ROOT, "chip_smoke.py"),
-           os.path.join(ROOT, "crush_probe.py")]
+           os.path.join(ROOT, "crush_probe.py"),
+           os.path.join(ROOT, "smoke_walls.py")]
     for d, _, files in os.walk(os.path.join(ROOT, "ceph_tpu_torch")):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -49,7 +57,7 @@ def _imported_roots(path):
 
 def test_sources_exist():
     srcs = _sources()
-    for script in ("chip_smoke.py", "crush_probe.py"):
+    for script in ("chip_smoke.py", "crush_probe.py", "smoke_walls.py"):
         assert os.path.join(ROOT, script) in srcs and os.path.exists(
             os.path.join(ROOT, script))
     assert len(srcs) > 15
@@ -59,7 +67,7 @@ def test_sources_exist():
                 "common/encoding.py", "native/__init__.py", "ec/lrc.py",
                 "ec/shec.py", "crush/compiler.py", "tools/crushtool.py",
                 "tools/psim.py", "common/crc.py", "common/xxhash.py",
-                *SLICE6):
+                *SLICE6, *SLICE7):
         assert os.path.join(ROOT, "ceph_tpu_torch", mod) in srcs, mod
 
 
@@ -106,3 +114,64 @@ def test_slice6_modules_mirror_the_reference_and_import_alone():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_slice7_modules_mirror_the_reference_and_import_alone():
+    """Each store and compressor module sits at its reference's path, and
+    importing the store, the compressor and the two tools in a fresh
+    interpreter loads neither JAX nor the JAX package."""
+    for mod in SLICE7:
+        assert os.path.exists(os.path.join(ROOT, "ceph_tpu", mod)), mod
+    code = ("import sys\n"
+            "import ceph_tpu_torch.store, ceph_tpu_torch.compressor\n"
+            "import ceph_tpu_torch.store.blockstore\n"
+            "import ceph_tpu_torch.store.kstore\n"
+            "import ceph_tpu_torch.tools.objectstore_tool\n"
+            "import ceph_tpu_torch.tools.kvstore_tool\n"
+            "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+            "('jax', 'jaxlib', 'ceph_tpu'))\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_smoke_walls_splits_the_output_by_phase():
+    """Each phase runs from the previous phase's last line to its own;
+    an indented line counts to the phase before it, the lines before
+    the first phase to ``start``, and a phase seen again adds up."""
+    sys.path.insert(0, ROOT)
+    try:
+        import smoke_walls
+    finally:
+        sys.path.remove(ROOT)
+    stamped = [(1.0, "card: x"), (3.0, "phase build: 2 s"),
+               (4.0, "phase main_path encode"), (4.5, "  osd.0: 1"),
+               (6.0, "phase store place"), (7.0, "phase main_path again")]
+    assert smoke_walls.phase_walls(stamped, 7.25) == {
+        "start": 1.0, "build": 2.0, "main_path": 2.5, "store": 1.5,
+        "end": 0.25}
+    assert smoke_walls.phase_walls([], 2.0) == {"start": 0.0, "end": 2.0}
+
+
+def test_smoke_walls_runs_the_script_and_passes_its_code_on(tmp_path):
+    """Run against a directory whose chip_smoke.py prints two phases and
+    exits 3: the lines come back stamped, the last line is the JSON of
+    the phases' walls, and the exit code is the script's."""
+    (tmp_path / "chip_smoke.py").write_text(
+        "import sys\nprint('card: none')\nprint('phase one: a')\n"
+        "print('phase two: b')\nsys.exit(3)\n")
+    run = subprocess.run([sys.executable, os.path.join(ROOT,
+                                                        "smoke_walls.py"),
+                          str(tmp_path)], capture_output=True, text=True,
+                         timeout=60)
+    assert run.returncode == 3
+    lines = run.stdout.splitlines()
+    assert [ln.split(None, 1)[1] for ln in lines[:-1]] == [
+        "card: none", "phase one: a", "phase two: b"]
+    last = json.loads(lines[-1])
+    assert last["rc"] == 3 and last["total_s"] > 0
+    assert list(last["phases_s"]) == ["start", "one", "two", "end"]
+    assert abs(sum(last["phases_s"].values()) - last["total_s"]) < 1e-6
