@@ -31,12 +31,21 @@ messenger every daemon is built on):
              cephx, local delivery), messages, lazy payloads, entity
              names and addresses
   osd/       ec_queue (the cross-PG EC batch collector), types (pg ids,
-             pools, locators), osdmap (OSDMap, Incremental, placement)
+             pools, locators), osdmap (OSDMap, Incremental, placement),
+             shards (the shard hash, the cross-loop future and courier,
+             the sharded data plane)
+  compressor/ zlib, bz2 and lzma behind the compressor registry
+  store/     the key-value stores (MemDB, FileDB) and the object stores
+             (memstore, filestore, kstore, blockstore) with the group
+             commit thread
+  mon/       the monitor: monmap, messages, elector, paxos, the OSDMap,
+             auth, PG, log and FS services, and the MonClient
   tools/     ec_benchmark (ceph_erasure_code_benchmark), osdmaptool,
              crushtool, psim, perf_msgr (the messenger's throughput
-             harness)
+             harness), objectstore_tool, kvstore_tool
 
 Every entry point that touches the card runs on ``cuda`` unless the
 caller passes ``device="cpu"``; with no card present it raises.  The
-runtime, auth and messenger modules are host Python and touch no card.
+runtime, auth, messenger, store and monitor modules are host Python and
+touch no card.
 """

@@ -21,8 +21,8 @@ connection, then frames [u8 tag][u32 len][payload]:
 The port's copy of ``ceph_tpu.msg.messenger``: frames, banners, acks
 and cephx signatures are byte-identical, so a messenger of either package
 talks to one of the other over TCP.  ``_post_home`` (reached only when a
-shard thread sends) names the port's ``osd.shards.Courier``, which comes
-with the OSD core.
+thread other than the home loop's sends) marshals the send through the
+port's ``osd.shards.Courier``.
 """
 
 from __future__ import annotations

@@ -5,8 +5,9 @@ one CUDA card, from the root of a checkout.
 It drives ceph_tpu_torch's EC write / degraded-read data path, the EC
 variant tuner, CRUSH placement up to the OSDMap and osdmaptool, the lrc
 and shec codecs, crushtool and psim on the card, the native host
-library on its host, the messenger carrying the card's chunks, and the
-port's object stores holding them, and fails (exit code 1, no result
+library on its host, the messenger carrying the card's chunks, the
+port's object stores holding them, and a 3-mon quorum whose OSDMap feeds
+placement and rebuild, and fails (exit code 1, no result
 line) on any fault:
 
   1. prints the card's name and power limit, builds the kernels
@@ -109,11 +110,37 @@ line) on any fault:
      around each step, with the span of CUDA events around each wrapper
      call (host work included, not kernel time); wall and MB/s per step,
      each store's commit counters and mount seconds (host clock);
- 15. times the probe, the descent and the winner grid beside their plain
+ 15. a 3-mon quorum's OSDMap through D1 and K1: three port Monitors
+     (mon_election_timeout 0.3, mon_lease 1.0, mon_tick_interval 0.5 s,
+     reconnect backoff 0.02-0.1 s; each with a FileDB under a temporary
+     directory) elect a leader on
+     127.0.0.1; an admin MonClient runs osd crush build-simple for 1024
+     OSDs in 128 hosts x 8, 128 host messengers send the 1024 MOSDBoots,
+     an RS k=8 m=4 profile, a replicated size-3 pool of 32768 PGs and an
+     EC pool of 8192 PGs are created; 64 config-key sets, one at a time,
+     give the commit latency (p50, p99; the filesystem type printed
+     beside); a subscriber on mon c gets the map, equal to each mon's
+     stored full map; D1 places phase 3's 64 object names (one launch) and
+     maps both pools (one launch each), every row equal to the host
+     engine's; K1 encodes the objects through ECBatchQueue(mode="on");
+     the three OSDs holding the most shards are reported failed by
+     another host and marked out, D1 places the names again (only their
+     positions move) and K1 rebuilds every moved shard, each equal to the
+     CPU codec's by sha256; the mon's own sweeps (pg_num 16384 on the EC
+     pool, reweight-by-utilization) run on its host engine with no
+     launch, and the reply's avg_pgs equals the mean of the subscriber's
+     D1 census of both pools (two launches); once the quorum has held
+     for 2 x mon_lease + the election timeout, the leader shuts down (a
+     new leader commits, the subscriber's next map comes from mon c) and
+     restarts from its FileDB (back in quorum, every stored value equal);
+     fails on an ERROR logged by a mon and on launch counts other than
+     those stated (host clock, launches, wrapper spans);
+ 16. times the probe, the descent and the winner grid beside their plain
      versions and bounds, and prints the ``kernels`` line (launches by
      path: the queue, lrc, shec, the messenger's and the store's encode,
-     the store's rebuild; the CRUSH path, the OSDMap, crushtool, psim,
-     the store's placement).
+     the store's rebuild, the mon phase's encode and rebuild; the CRUSH
+     path, the OSDMap, crushtool, psim, the store's placement, the mon
+     phase's four steps).
 
 The last line of its output is ``{"ok": true, "device": {...}}``.  It
 imports nothing of JAX and nothing of the JAX package.
@@ -1819,6 +1846,616 @@ def store_phase(np, kernel, dev, smi, objects, tmpdir, engine="device"):
     return out
 
 
+# Cut from the defaults: the mon timers of tests/test_mon.py's FAST_CFG
+# (at the defaults one election waits 5 s) and the messenger's reconnect
+# backoff (FAST_CFG's start, capped at 0.1 s).  A mon restarted after a
+# few seconds down hears its peers only when their reconnect backoff has
+# run out (seconds, at the defaults), past the 0.3 s election timeout;
+# the reference's elector then lets a deferring peer declare a victory
+# from its stale ack set, at an epoch that makes the restarted mon's
+# proposals stale, and the mon never rejoins.
+MON_CFG = {"mon_election_timeout": 0.3, "mon_lease": 1.0,
+           "mon_tick_interval": 0.5, "ms_initial_backoff": 0.02,
+           "ms_max_backoff": 0.1}
+MON_NAMES = ("a", "b", "c")
+MON_OSDS, MON_PER_HOST = 1024, 8        # phase 7's cluster: 128 hosts x 8
+# Ceph's ~100 PGs per OSD over the pool size, down to a power of two:
+# 1024 x 100 / 3 -> 32768 and 1024 x 100 / 12 -> 8192
+MON_REP_PGS, MON_EC_PGS, MON_EC_GROWN = 32768, 8192, 16384
+MON_WAIT_S = 120.0     # bound on each wait for the quorum or a map
+#: crush_map launches by step: the names, the two pools, the names again
+#: after three OSDs go down and out, the two pools again for the
+#: reweight census
+MON_D1_LAUNCHES = {"place": 1, "pools": 2, "re-place": 1, "census": 2}
+
+
+class MonErrors:
+    """Records what the mons log at ERROR (a dispatch or a command that
+    raised, a failed tick)."""
+
+    def __init__(self):
+        import logging
+        self.records = []
+        self.handler = logging.Handler(logging.ERROR)
+        self.handler.emit = self.records.append
+        self.roots = []
+
+    def watch(self, ctx):
+        ctx.log.root.addHandler(self.handler)
+        self.roots.append(ctx.log.root)
+
+    def close(self):
+        for root in self.roots:
+            root.removeHandler(self.handler)
+
+    def check(self, where):
+        check(not self.records, f"{where}: a mon logged "
+                                f"{[r.getMessage() for r in self.records]}")
+
+
+def fs_type(path):
+    """The type of the filesystem under ``path`` (``stat -f``)."""
+    try:
+        return subprocess.run(["stat", "-f", "-c", "%T", path],
+                              capture_output=True, text=True, timeout=10,
+                              check=True).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        return "unknown"
+
+
+def mon_store_values(mon):
+    """Every committed value a mon stores: the paxos versions and the
+    services' keys (the paxos bookkeeping, such as accepted_pn, is each
+    mon's own)."""
+    out = {}
+    for prefix in ("osdmap", "config-key", "auth", "fsmap"):
+        for k in mon.store.keys(prefix):
+            out[prefix, bytes(k)] = mon.store.get(prefix, k)
+    for v in range(mon.paxos.first_committed,
+                   mon.paxos.last_committed + 1):
+        out["paxos", v] = mon.paxos.get_version(v)
+    return out
+
+
+def mon_phase(np, kernel, dev, smi, objects, tmpdir, engine="device",
+              osds=MON_OSDS, per_host=MON_PER_HOST, rep_pgs=MON_REP_PGS,
+              ec_pgs=MON_EC_PGS, ec_grown=MON_EC_GROWN):
+    """A 3-mon quorum's OSDMap through D1 placement and K1 rebuild.
+
+    Three port Monitors (each with its FileDB under ``tmpdir``) elect a
+    leader; an admin MonClient builds the cluster through commands
+    (``osd crush build-simple``, one MOSDBoot per OSD from one messenger
+    per host, an RS k=8 m=4 profile, a replicated size-3 pool and an EC
+    pool); one ``config-key set`` per object times the commit; a second
+    MonClient subscribes to the osdmap through mon c and its map must
+    equal each mon's stored full map.  On that map D1 places the
+    objects' names (one launch) and maps both pools (one launch each),
+    every row equal to the host engine's; K1 encodes the objects through
+    ECBatchQueue; the three OSDs that hold the most shards are reported
+    failed and marked out, D1 places the names again (only their
+    positions move) and K1 rebuilds every moved shard, each equal to the
+    CPU codec's chunk.  Then the mon's own sweeps (pg_num growth and
+    reweight-by-utilization, on the host engine: no launch), whose
+    avg_pgs must equal the mean of the subscriber's D1 census; last the
+    leader's shutdown (a new leader commits, the subscriber gets the next
+    map from mon c) and its restart from its FileDB (back in quorum with
+    equal stored values)."""
+    import hashlib
+
+    import torch
+
+    from ceph_tpu_torch.common.context import Context
+    from ceph_tpu_torch.ec import factory, gf256
+    from ceph_tpu_torch.mon import CommandError, Monitor, MonClient, MonMap
+    from ceph_tpu_torch.mon.messages import MOSDBoot, MOSDFailure, MOSDMap
+    from ceph_tpu_torch.msg.messenger import Dispatcher, Messenger
+    from ceph_tpu_torch.msg.types import EntityName
+    from ceph_tpu_torch.ops import crush_kernel as ck
+    from ceph_tpu_torch.osd.ec_queue import ECBatchQueue
+    from ceph_tpu_torch.osd.osdmap import OSDMap
+    from ceph_tpu_torch.store.kv import FileDB
+    on_card = dev.type == "cuda"
+    n_obj, width = len(objects), K + M
+    hosts = osds // per_host
+    names = [f"rbd_data.mon.{i:016x}" for i in range(n_obj)]
+    walls, spans = {}, {}
+    out = {"cut": dict(MON_CFG), "osds": osds, "hosts": hosts,
+           "d1_launches": {}, "k1_launches": {}}
+    errors = MonErrors()
+    t_phase = t0 = time.perf_counter()
+    want = cpu_chunk_digests(objects)
+    walls["cpu_digests"] = time.perf_counter() - t0
+    codec = factory("rs", {"k": str(K), "m": str(M)}, device=dev)
+    gen = gf256.rs_vandermonde_matrix(K, M)
+    mode = "on" if on_card else "force"
+
+    def ctx_of(name):
+        ctx = Context(name)
+        for k, v in MON_CFG.items():
+            ctx.config.set(k, v)
+        return ctx
+
+    async def command(client, cmd):
+        try:
+            return await client.command(cmd, timeout=MON_WAIT_S)
+        except CommandError as e:
+            raise SmokeFailure(f"{cmd['prefix']}: rc {e.retcode} "
+                               f"{e.outs}") from None
+
+    async def wait(cond, what):
+        deadline = time.perf_counter() + MON_WAIT_S
+        while not cond():
+            check(time.perf_counter() < deadline,
+                  f"{what}: not after {MON_WAIT_S} s")
+            await asyncio.sleep(0.01)
+
+    def leader_of(mons, size=3):
+        live = [m for m in mons if m.running and m.is_leader()
+                and m.paxos.state == "active" and len(m.quorum) == size]
+        return live[0] if len(live) == 1 else None
+
+    def settled(mons):
+        """One active leader, every peon holding a lease from it (so its
+        lease timer runs), all at one version."""
+        leader = leader_of(mons, len(mons))
+        return (leader is not None
+                and all(x.paxos.is_readable() for x in mons)
+                and len({x.paxos.last_committed for x in mons}) == 1
+                and len({x.election_epoch for x in mons}) == 1)
+
+    async def stable(mons, what):
+        """Wait until ``settled`` has held, with one leader and one
+        election epoch, for 2 x mon_lease + mon_election_timeout: no
+        lease timeout or election is then still on its way.  Returns the
+        seconds to the start of that window."""
+        hold = 2 * MON_CFG["mon_lease"] + MON_CFG["mon_election_timeout"]
+        t0 = time.perf_counter()
+        deadline, since, state = t0 + MON_WAIT_S, None, None
+        while True:
+            now = time.perf_counter()
+            leader = leader_of(mons, len(mons))
+            cur = (leader.name, leader.election_epoch) \
+                if leader is not None and settled(mons) else None
+            if cur is None or cur != state:
+                since, state = (now if cur else None), cur
+            elif now - since >= hold:
+                return since - t0
+            check(now < deadline, f"{what}: no stable quorum after "
+                                  f"{MON_WAIT_S} s")
+            await asyncio.sleep(0.01)
+
+    def off_loop(fn, *args):
+        """Host work of the client side (a whole-pool mapping, a
+        comparison, sha256s) runs on a worker thread: the three mons share
+        this event loop, and a second's stall there outlasts their lease
+        (2 x mon_lease) and starts an election."""
+        return asyncio.to_thread(fn, *args)
+
+    async def d1(label, fn):
+        """One step of D1: its launches counted from 0, each wrapper call
+        timed by CUDA events."""
+        ck.crush_map_launches = 0
+        with device_timer(torch, ck, "crush_map", on_card) as events:
+            t = time.perf_counter()
+            res = await off_loop(fn)
+            walls[label] = time.perf_counter() - t
+        out["d1_launches"][label] = ck.crush_map_launches
+        spans[label] = events_ms(torch, events)
+        if on_card:
+            check(ck.crush_map_launches == MON_D1_LAUNCHES[label]
+                  == len(events),
+                  f"{label}: {ck.crush_map_launches} crush_map launches, "
+                  f"{MON_D1_LAUNCHES[label]} stated")
+        return res
+
+    async def k1(label, jobs):
+        """One step of K1 through ECBatchQueue: launches counted from 0,
+        each wrapper call timed."""
+        q = ECBatchQueue(Context("osd.0"), device=dev, mode=mode)
+        try:
+            with device_timer(torch, kernel, "gf_apply", on_card) as events:
+                kernel.gf_apply_launches = 0
+                t = time.perf_counter()
+                res = await asyncio.gather(*[q.apply(mat, d)
+                                             for mat, d in jobs])
+                walls[label] = time.perf_counter() - t
+                launches = kernel.gf_apply_launches
+            qperf = q.perf.dump()
+        finally:
+            await q.stop()
+        check(qperf["host_requests"] == 0, f"{label}: "
+              f"{qperf['host_requests']} requests took the host path")
+        if on_card:
+            check(launches > 0 and launches == qperf["device_launches"]
+                  == len(events),
+                  f"{label}: gf_apply launches {launches}, queue "
+                  f"device_launches {qperf['device_launches']}, timed "
+                  f"{len(events)}")
+        out["k1_launches"][label] = launches
+        spans[label] = events_ms(torch, events)
+        return res
+
+    async def run():
+        mons, msgrs, clients = [], [], []
+        paths = {n: os.path.join(tmpdir, f"mon.{n}") for n in MON_NAMES}
+        try:
+            # 1. quorum
+            t = time.perf_counter()
+            bound = []
+            for n in MON_NAMES:
+                ctx = ctx_of(f"mon.{n}")
+                errors.watch(ctx)
+                msgr = Messenger(ctx, EntityName("mon", n))
+                bound.append((ctx, n, msgr, await msgr.bind("127.0.0.1")))
+            monmap = MonMap()
+            monmap.fsid = "chip-smoke-mon"
+            for _, n, _, addr in bound:
+                monmap.add(n, addr)
+            blob = monmap.to_bytes()
+            for ctx, n, msgr, _ in bound:
+                mons.append(Monitor(ctx, n, MonMap.from_bytes(blob),
+                                    FileDB(paths[n]), msgr))
+                await mons[-1].start()
+            await wait(lambda: leader_of(mons) is not None, "election")
+            leader = leader_of(mons)
+            walls["election"] = time.perf_counter() - t
+            print(f"phase mon quorum: mons {', '.join(MON_NAMES)} on "
+                  f"127.0.0.1, leader mon.{leader.name} active in "
+                  f"{walls['election']:.4f} s (election epoch "
+                  f"{leader.election_epoch}); config cut from the defaults:"
+                  f" {MON_CFG}, auth_supported none (host clock)")
+
+            async def client_of(name, rank=0, dispatcher=None):
+                ctx = ctx_of(name)
+                type_, _, id_ = name.partition(".")
+                msgr = Messenger(ctx, EntityName(type_, id_))
+                if dispatcher is not None:
+                    msgr.add_dispatcher(dispatcher)   # ahead of the client
+                await msgr.bind("127.0.0.1")
+                msgrs.append(msgr)
+                c = MonClient(ctx, msgr, MonMap.from_bytes(blob))
+                c.cur_mon = rank
+                clients.append(c)
+                return c
+
+            # 2. the cluster through commands and a boot storm
+            admin = await client_of("client.admin")
+            await command(admin, {"prefix": "osd crush build-simple",
+                                  "num_osds": osds,
+                                  "osds_per_host": per_host})
+            e0 = leader.osdmon.osdmap.epoch
+            host_msgrs = []
+            for h in range(hosts):
+                first = h * per_host
+                msgr = Messenger(ctx_of(f"osd.{first}"),
+                                 EntityName("osd", str(first)))
+                await msgr.bind("127.0.0.1")
+                msgrs.append(msgr)
+                host_msgrs.append(msgr)
+            t = time.perf_counter()
+            for h, msgr in enumerate(host_msgrs):
+                for o in range(h * per_host, (h + 1) * per_host):
+                    msgr.send_message(MOSDBoot(o, msgr.addr),
+                                      leader.messenger.addr,
+                                      peer_type="mon")
+            await wait(lambda: leader.osdmon.osdmap.count_up() == osds,
+                       "boot storm")
+            walls["boot"] = time.perf_counter() - t
+            out["boot_epochs"] = leader.osdmon.osdmap.epoch - e0
+            print(f"phase mon boot: {osds} MOSDBoots from {hosts} host "
+                  f"messengers, all up in {walls['boot']:.4f} s over "
+                  f"{out['boot_epochs']} osdmap epochs (e{e0} -> "
+                  f"e{leader.osdmon.osdmap.epoch}; host clock)")
+            t = time.perf_counter()
+            acks = [await command(admin, c) for c in (
+                {"prefix": "osd erasure-code-profile set", "name": "rs84",
+                 "profile": {"k": str(K), "m": str(M)}},
+                {"prefix": "osd pool create", "pool": "rbd",
+                 "pg_num": rep_pgs, "size": 3},
+                {"prefix": "osd pool create", "pool": "ec84",
+                 "pg_num": ec_pgs, "pool_type": "erasure",
+                 "erasure_code_profile": "rs84"})]
+            walls["pools_create"] = time.perf_counter() - t
+            osdmap = leader.osdmon.osdmap
+            rep, ec = osdmap.lookup_pool("rbd"), osdmap.lookup_pool("ec84")
+            check(rep >= 0 and ec >= 0 and osdmap.pools[ec].size == width,
+                  f"pools: {[a.outs for a in acks]}")
+            print(f"phase mon pools: profile rs84 (k={K} m={M}), pool rbd "
+                  f"(replicated size 3, {rep_pgs} PGs) and ec84 (erasure, "
+                  f"{ec_pgs} PGs) committed in "
+                  f"{walls['pools_create']:.4f} s; osdmap e{osdmap.epoch}, "
+                  f"full map {len(osdmap.to_bytes())} bytes (host clock)")
+
+            # 3. commit latency: one paxos round per command
+            lat = []
+            for i, name in enumerate(names):
+                val = hashlib.sha256(objects[i]).hexdigest()
+                t = time.perf_counter()
+                await command(admin, {"prefix": "config-key set",
+                                      "key": name, "val": val})
+                lat.append(time.perf_counter() - t)
+            p50, p99 = (float(np.percentile(lat, q)) for q in (50, 99))
+            out["commit_s"] = {"p50": p50, "p99": p99, "max": max(lat),
+                               "n": len(lat)}
+            out["fs_type"] = fs_type(tmpdir)
+            print(f"phase mon commit: {len(lat)} config-key set, one at a "
+                  f"time: p50 {p50 * 1e3:.3f} ms, p99 {p99 * 1e3:.3f} ms, "
+                  f"max {max(lat) * 1e3:.3f} ms (host clock); the FileDBs "
+                  f"are on {out['fs_type']}")
+
+            # 4. a subscriber through mon c; its map equals every store's
+            seen = []
+
+            class MapSeen(Dispatcher):
+                def ms_dispatch(self, m):
+                    if isinstance(m, MOSDMap):
+                        seen.append((str(m.src_name), sorted(m.fulls),
+                                     sorted(m.incrementals)))
+                    return False
+
+            sub = await client_of("client.sub", 2, MapSeen())
+            t = time.perf_counter()
+            sub.sub_want("osdmap", 0)
+            await sub.wait_for_osdmap(timeout=MON_WAIT_S)
+            await wait(lambda: sub.osdmap.epoch
+                       == leader.osdmon.osdmap.epoch, "subscriber map")
+            walls["subscribe"] = time.perf_counter() - t
+            e = sub.osdmap.epoch
+            await wait(lambda: all(x.osdmon.osdmap.epoch >= e
+                                   for x in mons), "peons' maps")
+            mine = sub.osdmap.to_bytes()
+            for x in mons:
+                check(x.store_get("osdmap", f"full_{e}") == mine,
+                      f"the subscriber's e{e} differs from mon.{x.name}'s "
+                      f"stored full_{e}")
+            print(f"phase mon subscribe: client.sub on mon.c has e{e} in "
+                  f"{walls['subscribe']:.4f} s; its {len(mine)} bytes equal "
+                  f"full_{e} in the stores of mon.a, mon.b and mon.c")
+
+            # 5. D1 on the subscriber's map, held against the host engine
+            m = sub.osdmap
+            placed = await d1("place", lambda: m.map_objects_batch(
+                ec, names, engine=engine, device=dev))
+            check(placed == await off_loop(lambda: OSDMap.from_bytes(
+                mine).map_objects_batch(ec, names, engine="host")),
+                "place: D1 differs from the host engine")
+            for _, acting, _ in placed:
+                check(len(acting) == width and len(set(acting)) == width
+                      and all(0 <= o < osds for o in acting),
+                      f"acting {acting} is not {width} distinct OSDs")
+
+            def both_pools(mp):
+                return {p: mp.map_pgs_batch(p, engine=engine, device=dev)
+                        for p in (rep, ec)}
+
+            def host_pools(mp):
+                hm = OSDMap.from_bytes(mp.to_bytes())
+                return {p: hm.map_pgs_batch(p, engine="host")
+                        for p in (rep, ec)}
+
+            pools = await d1("pools", lambda: both_pools(m))
+            check(pools == await off_loop(host_pools, m),
+                  "pools: D1 differs from host")
+            print(f"phase mon place: {n_obj} names in one map_objects_batch"
+                  f" and pools {rep} ({rep_pgs} PGs) and {ec} ({ec_pgs} PGs)"
+                  f" in one map_pgs_batch each (engine {engine}): "
+                  f"{walls['place']:.4f} s and {walls['pools']:.4f} s, "
+                  f"crush_map launches {out['d1_launches']}, wrapper spans "
+                  f"{spans['place']:.4f} and {spans['pools']:.4f} ms (CUDA "
+                  f"events around each call, host work included); every "
+                  f"row equals the host engine's; card {smi}")
+
+            # 6. K1 encodes the objects
+            split = [codec.split_data(o) for o in objects]
+            parity = await k1("encode", [(gen[K:], s) for s in split])
+            chunks = [np.concatenate([s, p]) for s, p in zip(split, parity)]
+            del split, parity
+            bad = await off_loop(lambda: sum(
+                hashlib.sha256(c[s].tobytes()).digest() != want[i][s]
+                for i, c in enumerate(chunks) for s in range(width)))
+            check(bad == 0, f"encode: {bad} chunks differ from the CPU "
+                            f"codec's")
+            print(f"phase mon encode: {n_obj} x {len(objects[0]) >> 10} KiB"
+                  f" through ECBatchQueue on {dev} in {walls['encode']:.4f} "
+                  f"s, gf_apply launches {out['k1_launches']['encode']}, "
+                  f"wrapper spans {spans['encode']:.4f} ms; every chunk "
+                  f"equals the CPU codec's; card {smi}")
+
+            # 7. the three OSDs with the most shards go down and out
+            load = {}
+            for _, acting, _ in placed:
+                for o in acting:
+                    load[o] = load.get(o, 0) + 1
+            lost = sorted(sorted(load, key=lambda o: (-load[o], o))[:3])
+            out["lost"] = {o: load[o] for o in lost}
+            reporter = next(h for h in range(hosts)
+                            if all(o // per_host != h for o in lost))
+            t = time.perf_counter()
+            for o in lost:
+                host_msgrs[reporter].send_message(
+                    MOSDFailure(target_osd=o, epoch=sub.osdmap.epoch),
+                    leader.messenger.addr, peer_type="mon")
+            for o in lost:
+                await command(admin, {"prefix": "osd out", "id": o})
+            await wait(lambda: all(not sub.osdmap.is_up(o)
+                                   and not sub.osdmap.is_in(o)
+                                   for o in lost), "down and out")
+            walls["down_out"] = time.perf_counter() - t
+            e_out = sub.osdmap.epoch
+            replaced = await d1("re-place", lambda: m.map_objects_batch(
+                ec, names, engine=engine, device=dev))
+            check(replaced == await off_loop(lambda: OSDMap.from_bytes(
+                m.to_bytes()).map_objects_batch(ec, names, engine="host")),
+                "re-place: D1 differs from the host engine")
+            jobs, wants, moved = [], [], 0
+            for i, ((_, old, _), (_, new, _)) in enumerate(
+                    zip(placed, replaced)):
+                gone = [s for s in range(width) if old[s] in lost]
+                for s in range(width):
+                    if s in gone:
+                        check(new[s] not in lost and new[s] >= 0,
+                              f"{names[i]}: shard {s} on {new[s]}")
+                    else:
+                        check(new[s] == old[s], f"{names[i]}: shard {s} "
+                              f"moved {old[s]} -> {new[s]}, not from a "
+                              f"lost OSD")
+                if gone:
+                    present = [s for s in range(width) if s not in gone][:K]
+                    jobs.append((codec.decode_matrix_for(present, gone),
+                                 chunks[i][present]))
+                    wants.append([want[i][s] for s in gone])
+                    moved += len(gone)
+            check(jobs, "no shard sat on the three OSDs")
+            rebuilt = await k1("rebuild", jobs)
+            bad = sum(hashlib.sha256(row.tobytes()).digest() != w
+                      for res, ws in zip(rebuilt, wants)
+                      for row, w in zip(res, ws))
+            check(bad == 0, f"{bad} rebuilt shards differ from the CPU "
+                            f"codec's")
+            out["moved_shards"] = moved
+            print(f"phase mon down_out: osd {lost} ({out['lost']} shards) "
+                  f"reported failed by osd.{reporter * per_host}'s host and "
+                  f"marked out; the subscriber has them down and out at "
+                  f"e{e_out} in {walls['down_out']:.4f} s (host clock); D1 "
+                  f"re-placed the names in {walls['re-place']:.4f} s, "
+                  f"launches {out['d1_launches']['re-place']}: only their "
+                  f"{moved} positions moved; K1 rebuilt the {moved} shards "
+                  f"of {len(jobs)} objects in {walls['rebuild']:.4f} s, "
+                  f"gf_apply launches {out['k1_launches']['rebuild']}, "
+                  f"wrapper spans {spans['rebuild']:.4f} ms, each equal to "
+                  f"the CPU codec's; card {smi}")
+
+            # 8. the mon's own sweeps (host engine) against D1's census
+            ck.crush_map_launches = 0
+            t = time.perf_counter()
+            await command(admin, {"prefix": "osd pool set", "pool": "ec84",
+                                  "var": "pg_num", "val": ec_grown})
+            walls["pg_num"] = time.perf_counter() - t
+            check(ck.crush_map_launches == 0,
+                  "the pg_num sweep launched crush_map")
+            e_grown = leader.osdmon.osdmap.epoch
+            await wait(lambda: sub.osdmap.epoch >= e_grown, "grown map")
+            check(sub.osdmap.pools[ec].pg_num == ec_grown, "pg_num")
+            census = await d1("census", lambda: both_pools(sub.osdmap))
+            check(census == await off_loop(host_pools, sub.osdmap),
+                  "census: D1 differs from host")
+            per_osd = {}
+            for rows in census.values():
+                for _pg, _up, _upp, acting, _actp in rows:
+                    for o in acting:
+                        if o >= 0:
+                            per_osd[o] = per_osd.get(o, 0) + 1
+            avg = sum(per_osd.values()) / len(per_osd)
+            ck.crush_map_launches = 0
+            t = time.perf_counter()
+            ack = await command(admin,
+                                {"prefix": "osd reweight-by-utilization"})
+            walls["reweight"] = time.perf_counter() - t
+            check(ck.crush_map_launches == 0,
+                  "the reweight sweep launched crush_map")
+            reply = json.loads(ack.outs)
+            check(reply["avg_pgs"] == avg, f"reweight avg_pgs "
+                  f"{reply['avg_pgs']} != the census's {avg}")
+            out["sweeps"] = {"avg_pgs": avg,
+                             "reweighted": len(reply["reweighted"])}
+            print(f"phase mon sweeps: osd pool set ec84 pg_num {ec_grown} "
+                  f"in {walls['pg_num']:.4f} s and osd "
+                  f"reweight-by-utilization in {walls['reweight']:.4f} s "
+                  f"(the mon's host engine, no launch; host clock); "
+                  f"avg_pgs {avg} equals the mean of the subscriber's D1 "
+                  f"census of both pools ({walls['census']:.4f} s, "
+                  f"launches {out['d1_launches']['census']}, wrapper spans "
+                  f"{spans['census']:.4f} ms); {len(reply['reweighted'])} "
+                  f"OSDs reweighted; card {smi}")
+
+            # 9. the leader fails over, then restarts from its FileDB.  A
+            # stable quorum first: the reweight sweep holds the leader's
+            # loop past the peons' lease, and elections that overlap a
+            # shutdown or a restart can wedge the reference's elector
+            # (peons left without a lease timer; a restarted mon whose
+            # epoch the others drop as stale)
+            t = time.perf_counter()
+            await stable(mons, "before the failover")
+            walls["settle"] = time.perf_counter() - t
+            leader = leader_of(mons)
+            e_before = sub.osdmap.epoch
+            seen.clear()
+            old = leader
+            t = time.perf_counter()
+            await old.shutdown()
+            rest = [x for x in mons if x is not old]
+            await wait(lambda: leader_of(rest, 2) is not None, "failover")
+            walls["failover_leader"] = time.perf_counter() - t
+            leader = leader_of(rest, 2)
+            await command(admin, {"prefix": "config-key set",
+                                  "key": "failover", "val": "1"})
+            walls["failover_commit"] = time.perf_counter() - t
+            for o in lost:      # the OSDs come back: the next map
+                h = host_msgrs[o // per_host]
+                h.send_message(MOSDBoot(o, h.addr), leader.messenger.addr,
+                               peer_type="mon")
+            await wait(lambda: all(sub.osdmap.is_up(o) for o in lost),
+                       "the next map through mon c")
+            check(sub.osdmap.epoch > e_before and seen
+                  and all(src == "mon.c" for src, _, _ in seen),
+                  f"the subscriber's next maps came from {seen}")
+            print(f"phase mon failover: after {walls['settle']:.4f} s "
+                  f"waiting for a quorum that holds for 2 x mon_lease + the"
+                  f" election timeout, mon.{old.name} shut down; "
+                  f"mon.{leader.name} leads after "
+                  f"{walls['failover_leader']:.4f} s, a config-key set "
+                  f"commits after {walls['failover_commit']:.4f} s; the "
+                  f"subscriber got e{e_before + 1}-e{sub.osdmap.epoch} from"
+                  f" mon.c (host clock)")
+            t = time.perf_counter()
+            ctx = ctx_of(f"mon.{old.name}")
+            errors.watch(ctx)
+            back = Monitor(ctx, old.name, MonMap.from_bytes(blob),
+                           FileDB(paths[old.name]),
+                           Messenger(ctx, EntityName("mon", old.name)))
+            await back.start()
+            mons = [back, *rest]
+            # seconds to back in quorum: to the start of the stable window
+            walls["restart"] = time.perf_counter() - t \
+                + await stable(mons, "restart")
+            values = [mon_store_values(x) for x in mons]
+            check(values[0] == values[1] == values[2],
+                  "the mons' stored values differ after the restart")
+            got = await command(admin, {"prefix": "config-key get",
+                                        "key": names[-1]})
+            check(got.outs == hashlib.sha256(objects[-1]).hexdigest(),
+                  "config-key get after the restart")
+            out["last_committed"] = back.paxos.last_committed
+            print(f"phase mon restart: mon.{old.name} from its FileDB back "
+                  f"in quorum in {walls['restart']:.4f} s, last_committed "
+                  f"{back.paxos.last_committed} on all three and "
+                  f"{len(values[0])} stored values equal (host clock)")
+            errors.check("mon")
+        finally:
+            for c in clients:
+                c.stop()
+            for x in mons:
+                if x.running:
+                    await x.shutdown()
+            for msgr in msgrs:
+                await msgr.shutdown()
+
+    try:
+        asyncio.run(run())
+    finally:
+        errors.close()
+    out["walls"] = walls
+    out["spans_ms"] = spans
+    out["phase_s"] = time.perf_counter() - t_phase
+    kernel_ms = sum(spans.values())
+    print(f"phase mon: {out['phase_s']:.3f} s in all (host clock); "
+          f"crush_map launches {out['d1_launches']}, gf_apply launches "
+          f"{out['k1_launches']}; their wrapper spans {kernel_ms:.4f} ms "
+          f"(host work included), {kernel_ms / 10 / out['phase_s']:.4f} % "
+          f"of the phase; card {smi}")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2142,9 +2779,16 @@ def main() -> int:
         store = store_phase(np, kernel, dev, smi, objects, tmpdir)
     finally:
         shutil.rmtree(tmpdir, ignore_errors=True)
+
+    # -- phase 15: a 3-mon quorum's OSDMap through D1 and K1 -------------
+    tmpdir = tempfile.mkdtemp(prefix="smoke-mon")
+    try:
+        mon = mon_phase(np, kernel, dev, smi, objects, tmpdir)
+    finally:
+        shutil.rmtree(tmpdir, ignore_errors=True)
     del objects
 
-    # -- phase 15: the probe's timing, the kernels line -----------------
+    # -- phase 16: the probe's timing, the kernels line -----------------
     cfg0 = kernel.TUNE_SPACE[0]
     k2_ms = median_ms(
         torch, lambda: kernel.gf_apply_checksum(ops, data, cfg0), 25, flush)
@@ -2163,7 +2807,7 @@ def main() -> int:
 
     print(json.dumps({"host_paths": {"native": host, "crushtool": tool,
                                      "psim": sim, "messenger": msgr,
-                                     "store": store}}))
+                                     "store": store, "mon": mon}}))
     print(json.dumps({"kernels": [{
         "name": "gf_apply",
         "route": "cuda",
@@ -2172,13 +2816,15 @@ def main() -> int:
         "replaces_function": "_ec_fused_kernel",
         "launches": launches + msgr["launches"] + sum(
             sum(c["launches"].values()) for c in codecs.values())
-        + store["encode_launches"] + store["rebuild_launches"],
+        + store["encode_launches"] + store["rebuild_launches"]
+        + sum(mon["k1_launches"].values()),
         "launches_by_path": {"queue": launches} | {
             f"{plugin} {step}": n for plugin, c in codecs.items()
             for step, n in c["launches"].items()} | {
             "messenger encode": msgr["launches"],
             "store encode": store["encode_launches"],
-            "store rebuild": store["rebuild_launches"]},
+            "store rebuild": store["rebuild_launches"]} | {
+            f"mon {step}": n for step, n in mon["k1_launches"].items()},
         "narrow_shapes": narrow,
         "mismatches": mismatches,
         "max_abs_err": max_abs_err,
@@ -2213,12 +2859,14 @@ def main() -> int:
         "replaces_function": "JaxEngine._build (fast_map/full_map)",
         "launches": (crush["map_launches"] + osdmap_launches
                      + tool["launches"] + sim["launches"]
-                     + store["d1_launches"]),
+                     + store["d1_launches"]
+                     + sum(mon["d1_launches"].values())),
         "launches_by_path": {"batch_do_rule_arrays": crush["map_launches"],
                              "osdmap": osdmap_launches,
                              "crushtool --test": tool["launches"],
                              "psim": sim["launches"],
-                             "store placement": store["d1_launches"]},
+                             "store placement": store["d1_launches"]} | {
+            f"mon {step}": n for step, n in mon["d1_launches"].items()},
         "mismatches": crush["map_mismatches"],
         "max_abs_err": crush["map_max_abs_err"],
         "ms": crush["map_ms"],

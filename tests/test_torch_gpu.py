@@ -1,6 +1,7 @@
 """Card-only checks of the port: the CUDA kernel against its plain version
 on the card, the batch queue's device path on CUDA, the messenger
-carrying the kernel's chunks, and the stores holding them.
+carrying the kernel's chunks, the stores holding them, and a mon quorum's
+map feeding placement and rebuild.
 
 Marked ``gpu``.  Whether a card is present is decided inside the
 ``cuda`` fixture, so every worker collects the same tests; without a
@@ -583,3 +584,21 @@ def test_store_phase_of_k1_chunks_on_card(cuda, tmp_path):
     assert out["encode_launches"] > 0 and out["rebuild_launches"] > 0
     assert out["objects_losing_two_data"] > 0
     assert out["share"]["blockstore zlib"]["compressed_extents"] == 0
+
+
+def test_mon_phase_through_d1_and_k1_on_card(cuda, tmp_path):
+    """chip_smoke's mon phase at a small size on the card: a 3-mon
+    quorum's map, D1's placements (one launch per step, as stated) equal
+    to the host engine's, K1's encode and the rebuild of every moved
+    shard equal to the CPU codec's, the sweeps, failover and restart."""
+    import chip_smoke
+    rng = np.random.default_rng(15)
+    objects = [rng.integers(0, 256, 1 << 18, dtype=np.uint8).tobytes()
+               for _ in range(8)]
+    out = chip_smoke.mon_phase(np, kernel, cuda, "card", objects,
+                               str(tmp_path), osds=32, per_host=1,
+                               rep_pgs=64, ec_pgs=32, ec_grown=64)
+    assert out["d1_launches"] == chip_smoke.MON_D1_LAUNCHES
+    assert out["k1_launches"]["encode"] > 0
+    assert out["k1_launches"]["rebuild"] > 0
+    assert out["moved_shards"] == sum(out["lost"].values())

@@ -33,6 +33,11 @@ SLICE7 = ("compressor/registry.py", "compressor/__init__.py",
           "store/objectstore.py", "store/memstore.py", "store/filestore.py",
           "store/kstore.py", "store/blockstore.py", "store/__init__.py",
           "tools/objectstore_tool.py", "tools/kvstore_tool.py")
+#: the monitor and the shard plumbing the mon client and the messenger use
+SLICE8 = ("mon/monmap.py", "mon/messages.py", "osd/shards.py",
+          "mon/elector.py", "mon/paxos.py", "mon/monitor.py",
+          "mon/osd_monitor.py", "mon/auth_monitor.py", "mon/pg_monitor.py",
+          "mon/fs_monitor.py", "mon/client.py", "mon/__init__.py")
 
 
 def _sources():
@@ -67,7 +72,7 @@ def test_sources_exist():
                 "common/encoding.py", "native/__init__.py", "ec/lrc.py",
                 "ec/shec.py", "crush/compiler.py", "tools/crushtool.py",
                 "tools/psim.py", "common/crc.py", "common/xxhash.py",
-                *SLICE6, *SLICE7):
+                *SLICE6, *SLICE7, *SLICE8):
         assert os.path.join(ROOT, "ceph_tpu_torch", mod) in srcs, mod
 
 
@@ -128,6 +133,33 @@ def test_slice7_modules_mirror_the_reference_and_import_alone():
             "import ceph_tpu_torch.store.kstore\n"
             "import ceph_tpu_torch.tools.objectstore_tool\n"
             "import ceph_tpu_torch.tools.kvstore_tool\n"
+            "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+            "('jax', 'jaxlib', 'ceph_tpu'))\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_slice8_modules_mirror_the_reference_and_import_alone():
+    """Each mon module and osd/shards sits at its reference's path, and
+    importing the mon (its services too) in a fresh interpreter loads
+    neither JAX nor the JAX package, nor the OSD modules that shards.py
+    and osd_monitor.py import only on their lane, extent and scrub
+    paths."""
+    assert len(SLICE8) == 12
+    for mod in SLICE8:
+        assert os.path.exists(os.path.join(ROOT, "ceph_tpu", mod)), mod
+    code = ("import sys\n"
+            "import ceph_tpu_torch.mon, ceph_tpu_torch.osd.shards\n"
+            "import ceph_tpu_torch.mon.auth_monitor\n"
+            "import ceph_tpu_torch.mon.pg_monitor\n"
+            "import ceph_tpu_torch.mon.fs_monitor\n"
+            "lazy = [n for n in ('lanes', 'extents', 'messages') if\n"
+            "        'ceph_tpu_torch.osd.' + n in sys.modules]\n"
+            "assert not lazy, lazy\n"
             "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
             "('jax', 'jaxlib', 'ceph_tpu'))\n"
             "print(bad)\n"
