@@ -30,10 +30,17 @@ messenger every daemon is built on):
   msg/       the asyncio TCP messenger (lossy and lossless policies,
              cephx, local delivery), messages, lazy payloads, entity
              names and addresses
-  osd/       ec_queue (the cross-PG EC batch collector), types (pg ids,
+  osd/       the OSD daemon (daemon), PGs with peering, recovery and
+             backfill (pg), the replicated and EC backends (backend),
+             ec_queue (the cross-PG EC batch collector), types (pg ids,
              pools, locators), osdmap (OSDMap, Incremental, placement),
+             messages, pglog, sequencer (the per-PG op window), snaps,
+             hitset, tiering, scrub, extents (shared-memory payloads),
              shards (the shard hash, the cross-loop future and courier,
              the sharded data plane)
+  client/    the Objecter (op routing, corked batch placement) and the
+             librados-style Rados and IoCtx
+  qa/        cluster: an in-process mon + OSDs + clients harness
   compressor/ zlib, bz2 and lzma behind the compressor registry
   store/     the key-value stores (MemDB, FileDB) and the object stores
              (memstore, filestore, kstore, blockstore) with the group
@@ -47,5 +54,6 @@ messenger every daemon is built on):
 Every entry point that touches the card runs on ``cuda`` unless the
 caller passes ``device="cpu"``; with no card present it raises.  The
 runtime, auth, messenger, store and monitor modules are host Python and
-touch no card.
+touch no card; the OSD, the Objecter and the qa cluster take a ``device``
+for their EC batch queues and batched CRUSH placement.
 """

@@ -1,0 +1,8 @@
+"""Client I/O stack (the port's copy of ``ceph_tpu.client``; reference:
+src/osdc/ Objecter + src/librados/).  ``object_cacher`` and
+``rados_striper`` are not ported yet."""
+
+from ceph_tpu_torch.client.objecter import ObjectOperationError, Objecter
+from ceph_tpu_torch.client.rados import IoCtx, Rados
+
+__all__ = ["IoCtx", "ObjectOperationError", "Objecter", "Rados"]

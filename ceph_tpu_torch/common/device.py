@@ -34,3 +34,11 @@ def resolve_device(device: DeviceLike = DEFAULT_DEVICE) -> torch.device:
         raise ValueError(f"unsupported device type {dev.type!r}: the port "
                          f"runs on 'cuda' or 'cpu'")
     return dev
+
+
+def placement_engine(device: torch.device) -> str:
+    """The batched CRUSH engine for a daemon or client on ``device``: the
+    device descent on a card; on the CPU the host engine, as the JAX
+    package's call sites use, since the plain torch descent would run for
+    every PG of every pool at every map epoch."""
+    return "device" if device.type == "cuda" else "host"

@@ -9,15 +9,21 @@ helpers for primitive/container types; structs implement
 ``encode_payload``/``decode_payload`` and inherit framing from Encodable.
 
 The wire form is byte-identical to the JAX package's, so a CrushMap or
-OSDMap encoded by either package decodes in the other.  The lane
-transport's shared-memory extent handles (``data_bytes_``) are not
-ported: nothing on the port's paths sends object data through a ring.
+OSDMap encoded by either package decodes in the other.  Object data
+goes through ``data_bytes_``, which writes the same bytes as ``bytes_``
+unless a lane transport has installed an extent sink; the handle factory
+that decodes an extent mark is registered by ``osd.extents`` at import.
 """
 
 from __future__ import annotations
 
 import struct
 from typing import Any, Callable, Dict, List, Optional, Type
+
+#: length sentinel marking an extent HANDLE in place of inline data
+#: bytes (see ``Encoder.data_bytes_``).  A real 4 GiB-1 inline payload
+#: is impossible here: rings and pools are MiB-scale.
+EXTENT_MARK = 0xFFFFFFFF
 
 _U8 = struct.Struct("<B")
 _U16 = struct.Struct("<H")
@@ -29,10 +35,13 @@ _F64 = struct.Struct("<d")
 
 
 class Encoder:
-    __slots__ = ("buf",)
+    __slots__ = ("buf", "extent_sink")
 
     def __init__(self):
         self.buf = bytearray()
+        #: when set (lane transport only), ``data_bytes_`` may divert
+        #: large payloads into a shared-memory extent pool
+        self.extent_sink = None
 
     # primitives
     def u8(self, v: int):  self.buf.append(v & 0xFF); return self
@@ -53,6 +62,26 @@ class Encoder:
 
     def string(self, v: str):
         return self.bytes_(v.encode("utf-8"))
+
+    def data_bytes_(self, v):
+        """``bytes_`` for object DATA payloads: identical wire shape on
+        the TCP/socket path, but when an ``extent_sink`` is installed
+        (lane ring transport) an over-threshold payload is published
+        once to shared memory and only its ``(pool, gen, off, len)``
+        handle crosses the stream, tagged by the EXTENT_MARK length
+        sentinel.  Accepts an ExtentRef (re-encode of a lane-received
+        message): materialized first so the plain path never leaks a
+        handle onto a real wire."""
+        if getattr(v, "_is_extent_ref", False):
+            v = v.materialize()
+        sink = self.extent_sink
+        if sink is not None and len(v) >= sink.threshold:
+            h = sink.put(v)
+            if h is not None:           # None == pool full -> inline
+                self.u32(EXTENT_MARK)
+                self.string(h[0])
+                return self.u32(h[1]).u32(h[2]).u32(h[3])
+        return self.bytes_(v)
 
     def list_(self, items, fn: Callable[["Encoder", Any], Any]):
         self.u32(len(items))
@@ -84,6 +113,12 @@ class Encoder:
 class Decoder:
     __slots__ = ("mv", "off")
 
+    #: handle factory for ``data_bytes_`` extent marks — registered by
+    #: ceph_tpu.osd.extents at import (dependency inversion: common/
+    #: never imports osd/).  Streams with extent marks are only ever
+    #: produced by the lane transport, which imports extents first.
+    extent_factory = None
+
     def __init__(self, data: bytes, off: int = 0):
         self.mv = memoryview(data)
         self.off = off
@@ -112,6 +147,25 @@ class Decoder:
 
     def string(self) -> str:
         return self.bytes_().decode("utf-8")
+
+    def data_bytes_(self):
+        """Counterpart of ``Encoder.data_bytes_``: inline payloads copy
+        out exactly like ``bytes_``; an EXTENT_MARK resolves to a lazy
+        ExtentRef (no copy here — the copy is paid at first use and
+        attributed to the extent_read stage)."""
+        n = self.u32()
+        if n == EXTENT_MARK:
+            factory = self.extent_factory
+            if factory is None:
+                raise ValueError(
+                    "extent handle in stream but no factory registered")
+            name = self.string()
+            return factory(name, self.u32(), self.u32(), self.u32())
+        v = bytes(self.mv[self.off:self.off + n])
+        if len(v) != n:
+            raise ValueError("short buffer")
+        self.off += n
+        return v
 
     def list_(self, fn: Callable[["Decoder"], Any]) -> List[Any]:
         n = self.u32()

@@ -112,6 +112,10 @@ class ECBatchQueue:
         self._task: Optional[asyncio.Task] = None
         self._pool = concurrent.futures.ThreadPoolExecutor(
             max_workers=1, thread_name_prefix="ec-device")
+        #: device launches of this queue alone (an OSD's queues share
+        #: one ``ec_batch_queue`` perf group): written only by the
+        #: queue's one executor thread
+        self.launches = 0
         self.perf = ctx.perf.create("ec_batch_queue")
         for key in ("device_launches", "device_requests", "device_bytes",
                     "host_requests", "host_bytes"):
@@ -284,6 +288,7 @@ class ECBatchQueue:
         for w0, b in windows:
             ap.device_call(dev[:, w0:w0 + b], out=out_dev[:, w0:w0 + b])
             self.perf.inc("device_launches")
+            self.launches += 1
         res_host = torch.empty((mat.shape[0], total), dtype=torch.uint8,
                                pin_memory=pin)
         res_host.copy_(out_dev[:, :total], non_blocking=True)

@@ -2,7 +2,9 @@
 per-extent checksums and copy-on-write crash consistency (the port's copy
 of ``ceph_tpu.store.blockstore``; its block file and kv image are
 byte-identical to the JAX package's, so either package mounts a store the
-other wrote).
+other wrote).  Unlike the JAX package's, its entries take a store lock: an
+OSD with thread lanes applies and reads from several shard threads, and
+the onode cache is mutated in place while a batch applies.
 
 Reference parity: os/bluestore/BlueStore.{h,cc} — objects live as extent
 maps over a raw block device with metadata in a kv store, not as files
@@ -41,6 +43,7 @@ Redesign notes (vs the C++ original):
 from __future__ import annotations
 
 import os
+import threading
 import struct
 from typing import Dict, List, Optional, Tuple
 
@@ -246,6 +249,17 @@ class _Batch:
         self.wrote_data = False
 
 
+def _serialized(fn):
+    """Run a BlockStore entry under the store's own lock: the onode
+    cache is mutated in place while a batch applies, so an OSD's shard
+    threads (thread lanes) must not apply or read at the same time."""
+    def call(self, *args, **kwargs):
+        with self._api:
+            return fn(self, *args, **kwargs)
+    call.__name__, call.__doc__ = fn.__name__, fn.__doc__
+    return call
+
+
 class BlockStore(ObjectStore):
     #: selectable per-extent checksum (bluestore csum_type: crc32c is
     #: the default; xxhash32/xxhash64 as in bluestore_types.h
@@ -265,6 +279,9 @@ class BlockStore(ObjectStore):
         self._fd = -1
         self.alloc = Allocator()
         self._onodes: Dict[bytes, Onode] = {}    # write-through cache
+        # one applier or reader at a time (see _serialized); reentrant,
+        # for on_applied callbacks that read back
+        self._api = threading.RLock()
         self.mounted = False
         self._committer: Optional[KVSyncThread] = None
         self._comp = None
@@ -413,6 +430,7 @@ class BlockStore(ObjectStore):
         return on
 
     # -------------------------------------------------------------- writes
+    @_serialized
     def queue_transactions(self, txns, on_applied=None,
                            on_commit=None) -> None:
         """Apply data + metadata in memory, then hand the staged kv
@@ -809,22 +827,27 @@ class BlockStore(ObjectStore):
             out[s - off:e - off] = data[s - ext.logical:e - ext.logical]
         return bytes(out)
 
+    @_serialized
     def read(self, cid, oid, off: int = 0, length: int = -1) -> bytes:
         return self._read_onode(self._get_onode(cid, oid), off, length)
 
+    @_serialized
     def stat(self, cid, oid) -> Dict[str, int]:
         on = self._get_onode(cid, oid)
         return {"size": on.size}
 
+    @_serialized
     def getattr(self, cid, oid, name: str) -> bytes:
         on = self._get_onode(cid, oid)
         if name not in on.attrs:
             raise StoreError(f"no attr {name!r} on {oid}")
         return on.attrs[name]
 
+    @_serialized
     def getattrs(self, cid, oid) -> Dict[str, bytes]:
         return dict(self._get_onode(cid, oid).attrs)
 
+    @_serialized
     def omap_get(self, cid, oid) -> Tuple[bytes, Dict[bytes, bytes]]:
         on = self._get_onode(cid, oid)
         pre = _omap_key(cid, oid, b"")
@@ -833,6 +856,7 @@ class BlockStore(ObjectStore):
             out[k[len(pre):]] = self._kv_get(_PREFIX_OMAP, k)
         return on.omap_header, out
 
+    @_serialized
     def omap_get_values(self, cid, oid, keys) -> Dict[bytes, bytes]:
         self._get_onode(cid, oid)          # existence check
         out = {}
@@ -842,16 +866,20 @@ class BlockStore(ObjectStore):
                 out[k] = v
         return out
 
+    @_serialized
     def omap_get_header(self, cid, oid) -> bytes:
         return self._get_onode(cid, oid).omap_header
 
+    @_serialized
     def list_collections(self) -> List[CollectionId]:
         return [CollectionId(k.decode())
                 for k in self._kv_keys(_PREFIX_COLL)]
 
+    @_serialized
     def collection_exists(self, cid) -> bool:
         return self._coll_exists(cid)
 
+    @_serialized
     def collection_list(self, cid, start: Optional[ObjectId] = None,
                         max_count: int = 2**31) -> List[ObjectId]:
         if not self._coll_exists(cid):

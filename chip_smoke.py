@@ -6,8 +6,9 @@ It drives ceph_tpu_torch's EC write / degraded-read data path, the EC
 variant tuner, CRUSH placement up to the OSDMap and osdmaptool, the lrc
 and shec codecs, crushtool and psim on the card, the native host
 library on its host, the messenger carrying the card's chunks, the
-port's object stores holding them, and a 3-mon quorum whose OSDMap feeds
-placement and rebuild, and fails (exit code 1, no result
+port's object stores holding them, a 3-mon quorum whose OSDMap feeds
+placement and rebuild, and a cluster of port OSDs that a port client
+writes, reads and recovers through, and fails (exit code 1, no result
 line) on any fault:
 
   1. prints the card's name and power limit, builds the kernels
@@ -135,12 +136,35 @@ line) on any fault:
      restarts from its FileDB (back in quorum, every stored value equal);
      fails on an ERROR logged by a mon and on launch counts other than
      those stated (host clock, launches, wrapper spans);
- 16. times the probe, the descent and the winner grid beside their plain
+ 16. an RS k=8 m=4 pool on 16 port OSDs: three port Monitors (phase 15's
+     timers, FileDBs, on an event loop of their own) and 16 port OSDs,
+     one per host, each with a crc32c BlockStore and a messenger on
+     127.0.0.1 TCP, two shards on inline lanes each (each OSD's EC batch
+     queue launching from its own executor thread), built by ``osd crush
+     build-simple`` and the OSDs' MOSDBoots; a port Rados on the card
+     makes an RS pool of 64
+     PGs and a replicated size-3 pool of 256 (half Ceph's ~100 PGs per
+     OSD: 16 OSDs share one event loop); phase 3's 64 objects are
+     written into each with all in flight and read back (sha256), every
+     EC shard in its acting OSD's store equal to the CPU codec's chunk
+     and every replica to the others; the two OSDs holding the most EC
+     shards stop and are marked down (once every PG is active again,
+     the reads of objects that lost a data shard decode through K1) and
+     out (every PG clean again, every
+     moved shard rebuilt equal to the CPU codec's).  D1's launches are
+     counted by call site (the Objecter's cork flush, each OSD's epoch
+     advance, backfill planning) and K1's by queue and step (encode,
+     degraded read, rebuild), each step's wrapper count equal to the
+     call sites' and the queues'; fails on an ERROR logged by any daemon
+     and on counts outside the stated ranges (host clock, launches,
+     wrapper spans);
+ 17. times the probe, the descent and the winner grid beside their plain
      versions and bounds, and prints the ``kernels`` line (launches by
      path: the queue, lrc, shec, the messenger's and the store's encode,
-     the store's rebuild, the mon phase's encode and rebuild; the CRUSH
-     path, the OSDMap, crushtool, psim, the store's placement, the mon
-     phase's four steps).
+     the store's rebuild, the mon phase's encode and rebuild, the osd
+     phase's encode, degraded read and rebuild; the CRUSH path, the
+     OSDMap, crushtool, psim, the store's placement, the mon phase's four
+     steps, the osd phase's three call sites).
 
 The last line of its output is ``{"ok": true, "device": {...}}``.  It
 imports nothing of JAX and nothing of the JAX package.
@@ -158,6 +182,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense)
@@ -2456,6 +2481,523 @@ def mon_phase(np, kernel, dev, smi, objects, tmpdir, engine="device",
     return out
 
 
+OSD_N = 16             # one OSD per host (phase 14's cluster)
+# half of Ceph's ~100 PGs per OSD over the pool size, down to a power of
+# two: 16 x 50 / 12 -> 64 and 16 x 50 / 3 -> 256.  At the full count
+# (128 and 512) the PGs that re-peer when two OSDs go out left peering
+# queries unanswered past their 10 s timeout in one of two runs: 16 OSDs
+# share one event loop here
+OSD_EC_PGS, OSD_REP_PGS = 64, 256
+#: the cuts from the package's defaults: two shards per OSD on inline
+#: lanes (16 OSDs share one process and one event loop: each OSD's shards
+#: are tasks on it, and its EC batch queue has its own executor thread);
+#: a 20 s
+#: heartbeat grace (in the boot storm one OSD's loop waited up to 8 s for
+#: the interpreter lock, past the default 6 s, and live OSDs reported each
+#: other down); warnings only on stderr.  The failed OSDs are marked down
+#: and out by command, so no timer paces the phase.  Thread lanes stay
+#: out: with them a degraded EC read after two OSDs go down starves in
+#: both packages (ROADMAP queue C)
+OSD_CFG = {"osd_op_num_shards": 2, "osd_shard_lanes": "inline",
+           "osd_heartbeat_grace": 20.0, "log_level": 0}
+OSD_WAIT_S = 180.0     # bound on each wait for boot, clean PGs, recovery
+#: stated before the phase first ran on the card: crush_map launches by
+#: call site and gf_apply launches by step, (least, most)
+OSD_D1_RANGES = {"objecter": (2, 12), "epoch": (150, 3000),
+                 "backfill": (0, 400)}
+OSD_K1_RANGES = {"encode": (8, 64), "degraded read": (1, 64),
+                 "rebuild": (1, 200)}
+
+
+def chunk_digests(objects, k, m):
+    """The sha256 of each of the k + m chunks of each object, as the CPU
+    codec (RS) encodes it."""
+    import hashlib
+
+    from ceph_tpu_torch.ec import factory
+    cpu = factory("rs", {"k": str(k), "m": str(m)}, device="cpu")
+    out = []
+    for o in objects:
+        ch = cpu.encode(set(range(k + m)), o)
+        out.append([hashlib.sha256(ch[i].tobytes()).digest()
+                    for i in range(k + m)])
+    return out
+
+
+class DaemonErrors(MonErrors):
+    """Records what the mons, the OSDs and the client log at ERROR."""
+
+    def check(self, where):
+        check(not self.records, f"{where}: a daemon logged "
+                                f"{[r.getMessage() for r in self.records]}")
+
+
+def _pct(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(round(q / 100 * (len(xs) - 1))))]
+
+
+def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
+              ec_pgs=OSD_EC_PGS, rep_pgs=OSD_REP_PGS, queue_mode="auto",
+              d1_ranges=OSD_D1_RANGES, k1_ranges=OSD_K1_RANGES):
+    """An RS k=8 m=4 pool on 16 port OSDs, written, read and recovered
+    through the port's own daemons.
+
+    Three port Monitors (FileDBs under ``tmpdir``) and ``osds`` port OSDs,
+    one per host, each with its own crc32c BlockStore under ``tmpdir`` and
+    its own messenger on 127.0.0.1 TCP, on ``dev``; the cluster is built by
+    ``osd crush build-simple`` and the OSDs' own MOSDBoots.  A port
+    ``Rados`` on ``dev`` makes an RS pool (failure domain host) and a
+    replicated size-3 pool, writes every object into each with all of them
+    in flight, reads them back (sha256), checks every EC shard in its
+    acting OSD's store against the CPU codec's chunk and every replica
+    against the others; then stops the two OSDs holding the most EC
+    shards, marks them down (degraded reads decode through K1) and out,
+    waits for every PG to be clean again and checks every rebuilt shard
+    against the CPU codec's.  D1 runs at the Objecter's cork flush, at
+    each OSD's epoch advance and at backfill planning; K1 at the
+    primaries' encode, the degraded reads' decode and the rebuild, in the
+    OSDs' EC batch queues.  Fails on an ERROR logged by any
+    daemon, on a mismatch, and on launch counts outside the stated
+    ranges."""
+    import hashlib
+
+    import torch
+
+    from ceph_tpu_torch.client import Rados
+    from ceph_tpu_torch.common.context import Context
+    from ceph_tpu_torch.mon import Monitor, MonMap
+    from ceph_tpu_torch.msg.messenger import Messenger
+    from ceph_tpu_torch.msg.types import EntityName
+    from ceph_tpu_torch.ops import crush_kernel as ck
+    from ceph_tpu_torch.osd import OSD
+    from ceph_tpu_torch.osd.osdmap import OSDMap
+    from ceph_tpu_torch.osd.types import ObjectLocator
+    from ceph_tpu_torch.store.blockstore import BlockStore
+    from ceph_tpu_torch.store.kv import FileDB
+    from ceph_tpu_torch.store.types import CollectionId, ObjectId
+    on_card = dev.type == "cuda"
+    n_obj, width = len(objects), k + m
+    size = len(objects[0])
+    total = n_obj * size
+    names = [f"rbd_data.osd.{i:016x}" for i in range(n_obj)]
+    cfg = dict(MON_CFG, **OSD_CFG)
+    if queue_mode != "auto":
+        cfg["osd_ec_batch_device"] = queue_mode
+    walls, spans, out = {}, {}, {"cut": dict(OSD_CFG), "osds": osds}
+    group_steps = ("group_fold", "group_device", "group_split")
+    errors = DaemonErrors()
+    t_phase = t0 = time.perf_counter()
+    want = chunk_digests(objects, k, m)
+    digests = [hashlib.sha256(o).digest() for o in objects]
+    walls["cpu_digests"] = time.perf_counter() - t0
+
+    def ctx_of(name):
+        ctx = Context(name)
+        for key, v in cfg.items():
+            ctx.config.set(key, v)
+        errors.watch(ctx)
+        return ctx
+
+    async def wait(cond, what):
+        deadline = time.perf_counter() + OSD_WAIT_S
+        while not cond():
+            check(time.perf_counter() < deadline,
+                  f"{what}: not after {OSD_WAIT_S} s")
+            await asyncio.sleep(0.02)
+
+    live = {}              # osd id -> OSD
+    state = {"epoch_lost": 0, "backfill_lost": 0}
+    queue_launches = {}    # (osd, queue index) -> launches so far
+
+    def k1_counts():
+        for i, o in live.items():
+            for j, q in o.ec_queues().items():
+                queue_launches[i, j] = q.launches
+        return dict(queue_launches)
+
+    def d1_sites():
+        return {"objecter": state["admin"].objecter.crush_batches,
+                "epoch": state["epoch_lost"] + sum(
+                    o.crush_batches["epoch"] for o in live.values()),
+                "backfill": state["backfill_lost"] + sum(
+                    o.crush_batches["backfill"] for o in live.values())}
+
+    def queue_perf(key):
+        """(sum, count) of one of the OSDs' ec_batch_queue figures."""
+        s = n = 0
+        for o in live.values():
+            d = o.ctx.perf.dump().get("ec_batch_queue", {}).get(key, {})
+            s += d.get("sum", 0)
+            n += d.get("avgcount", 0)
+        return s, n
+
+    def settled(clean=True):
+        """Every live OSD at the client's map epoch and every PG's
+        primary active there (and clean, with no pg_temp left, unless
+        ``clean`` is false: a degraded PG is active too)."""
+        mp = state["admin"].monc.osdmap
+        if any(o.osdmap.epoch < mp.epoch for o in live.values()):
+            return False
+        if clean and mp.pg_temp:
+            return False
+        primaries = 0
+        for o in live.values():
+            for pg in list(o.pgs.values()):
+                if pg.is_primary():
+                    if pg.state != "active" or (
+                            clean and not pg.is_fully_clean()):
+                        return False
+                    primaries += 1
+        return primaries == sum(p.pg_num for p in mp.pools.values())
+
+    def placement(pool_id):
+        """Each object's PG and acting set, on a copy of the client's map
+        (lookups there prime the copy's cache on the host engine: the
+        Objecter's cache and launches stay as they were)."""
+        mp = OSDMap.from_bytes(state["admin"].monc.osdmap.to_bytes())
+        pool = mp.pools[pool_id]
+        loc = ObjectLocator(pool_id)
+        res = []
+        for name in names:
+            pg = pool.raw_pg_to_pg(mp.object_locator_to_pg(name, loc))
+            res.append((pg, list(mp.pg_to_acting_osds(pg)[0])))
+        return res
+
+    def rebuilt_in_place():
+        from ceph_tpu_torch.store.objectstore import (NoSuchCollection,
+                                                     NoSuchObject)
+        for j, ((pg, acting), (_, before)) in enumerate(
+                zip(placement(state["ec_pool"]), state["ec_place"])):
+            for i in range(width):
+                if acting[i] != before[i]:
+                    if acting[i] not in live:
+                        return False
+                    try:
+                        live[acting[i]].store.stat(
+                            CollectionId.pg(state["ec_pool"], pg.seed, i),
+                            ObjectId(names[j], pool=state["ec_pool"]))
+                    except (NoSuchCollection, NoSuchObject):
+                        return False
+        return True
+
+    def stored(o, pool_id, pg, shard, name):
+        data = live[o].store.read(CollectionId.pg(pool_id, pg.seed, shard),
+                                  ObjectId(name, pool=pool_id))
+        return hashlib.sha256(bytes(data)).digest()
+
+    async def step(label, coros):
+        """Run ``coros`` all at once: the wall and each one's latency
+        (host clock), K1's launches by queue and D1's by call site over
+        the step, and the wrapper spans (CUDA events)."""
+        k1_0, d1_0 = k1_counts(), d1_sites()
+        fill_0, walls_0 = queue_perf("batch_fill"), {
+            key: queue_perf(key)[0] for key in group_steps}
+        w_k1, w_d1 = kernel.gf_apply_launches, ck.crush_map_launches
+        lat = []
+
+        async def one(c):
+            t = time.perf_counter()
+            res = await c
+            lat.append(time.perf_counter() - t)
+            return res
+
+        with device_timer(torch, kernel, "gf_apply", on_card) as k1_ev, \
+                device_timer(torch, ck, "crush_map", on_card) as d1_ev:
+            t = time.perf_counter()
+            res = await asyncio.gather(*[one(c) for c in coros])
+            walls[label] = time.perf_counter() - t
+        k1_1, d1_1 = k1_counts(), d1_sites()
+        fill_1 = queue_perf("batch_fill")
+        k1 = {q: n - k1_0.get(q, 0) for q, n in k1_1.items()}
+        spans[label] = events_ms(torch, k1_ev) + events_ms(torch, d1_ev)
+        s = {"wall_s": walls[label], "p50_ms": _pct(lat, 50) * 1e3,
+             "k1_span_ms": events_ms(torch, k1_ev),
+             "d1_span_ms": events_ms(torch, d1_ev),
+             "p99_ms": _pct(lat, 99) * 1e3, "k1": sum(k1.values()),
+             "k1_queues": {f"osd.{o}/{j}": n
+                           for (o, j), n in sorted(k1.items()) if n},
+             "d1": {site: n - d1_0[site] for site, n in d1_1.items()},
+             "batch_fill": (fill_1[0] - fill_0[0])
+             / max(1, fill_1[1] - fill_0[1]),
+             "groups_s": {key: queue_perf(key)[0] - walls_0[key]
+                          for key in group_steps}}
+        if on_card:
+            w_k1 = kernel.gf_apply_launches - w_k1
+            w_d1 = ck.crush_map_launches - w_d1
+            check(w_k1 == s["k1"] == len(k1_ev),
+                  f"{label}: gf_apply launches {w_k1}, the queues' "
+                  f"{s['k1']}, timed {len(k1_ev)}")
+            check(w_d1 == sum(s["d1"].values()) == len(d1_ev),
+                  f"{label}: crush_map launches {w_d1}, by call site "
+                  f"{s['d1']}, timed {len(d1_ev)}")
+        out[label] = s
+        return res
+
+    def report(label, n_bytes, note=""):
+        s = out[label]
+        print(f"phase osd {label}: {s['wall_s']:.4f} s, "
+              f"{n_bytes / s['wall_s'] / 1e6:.1f} MB/s of object data, op "
+              f"p50 {s['p50_ms']:.2f} ms, p99 {s['p99_ms']:.2f} ms; "
+              f"gf_apply {s['k1']} launches {s['k1_queues']}, wrapper "
+              f"spans {s['k1_span_ms']:.4f} ms; crush_map by call site "
+              f"{s['d1']}, wrapper spans {s['d1_span_ms']:.4f} ms (each "
+              f"launch and its fetch on an OSD's or the client's event "
+              f"loop){note} (host clock)")
+
+    # the mons run on an event loop of their own, as separate daemons do:
+    # on the OSDs' loop, a second's stall there outlasts their lease
+    mons = []
+    mon_loop = asyncio.new_event_loop()
+    mon_thread = threading.Thread(target=mon_loop.run_forever,
+                                  name="mons", daemon=True)
+    mon_thread.start()
+
+    def on_mons(coro):
+        return asyncio.wrap_future(
+            asyncio.run_coroutine_threadsafe(coro, mon_loop))
+
+    async def start_osd(i, blob):
+        ctx = ctx_of(f"osd.{i}")
+        store = BlockStore(os.path.join(tmpdir, f"osd.{i}"),
+                           csum_type="crc32c")
+        store.mkfs()
+        msgr = Messenger(ctx, EntityName("osd", str(i)))
+        await msgr.bind("127.0.0.1")
+        osd = OSD(ctx, i, store, msgr, MonMap.from_bytes(blob), device=dev)
+        await osd.start()
+        return osd
+
+    async def start_mons():
+        bound = []
+        for n in MON_NAMES:
+            ctx = ctx_of(f"mon.{n}")
+            msgr = Messenger(ctx, EntityName("mon", n))
+            bound.append((ctx, n, msgr, await msgr.bind("127.0.0.1")))
+        monmap = MonMap()
+        monmap.fsid = "chip-smoke-osd"
+        for _, n, _, addr in bound:
+            monmap.add(n, addr)
+        blob = monmap.to_bytes()
+        for ctx, n, msgr, _ in bound:
+            mons.append(Monitor(
+                ctx, n, MonMap.from_bytes(blob),
+                FileDB(os.path.join(tmpdir, f"mon.{n}")), msgr))
+            await mons[-1].start()
+        return blob
+
+    async def stop_mons():
+        for x in mons:
+            if x.running:
+                await x.shutdown()
+
+    async def run():
+        try:
+            # 1. three mons, the cluster by command, the OSDs' own boots
+            t = time.perf_counter()
+            blob = await on_mons(start_mons())
+            kernel.gf_apply_launches = 0      # the phase's counts from 0
+            ck.crush_map_launches = 0
+            admin = state["admin"] = Rados(
+                ctx_of("client.admin"), MonMap.from_bytes(blob), device=dev)
+            await admin.connect()
+            await admin.mon_command({"prefix": "osd crush build-simple",
+                                     "num_osds": osds, "osds_per_host": 1})
+            started = await asyncio.gather(*[start_osd(i, blob)
+                                             for i in range(osds)])
+            live.update(enumerate(started))
+            await wait(lambda: admin.monc.osdmap is not None
+                       and all(admin.monc.osdmap.is_up(i)
+                               and admin.monc.osdmap.is_in(i)
+                               for i in range(osds)), "OSDs up and in")
+            walls["up_in"] = time.perf_counter() - t
+            o0 = live[0]
+            print(f"phase osd boot: 3 mons and {osds} OSDs (one per host, "
+                  f"crc32c BlockStores, TCP on 127.0.0.1, device "
+                  f"{o0.device}, CRUSH engine {o0.crush_engine}) up and in "
+                  f"after {walls['up_in']:.4f} s; {o0.shards.num_shards} "
+                  f"shards on {o0.shards.active_backend} lanes per OSD, EC "
+                  f"queue mode {o0.ec_queue.mode}; config cut from the "
+                  f"defaults: {OSD_CFG} (host clock)")
+            await admin.mon_command({
+                "prefix": "osd erasure-code-profile set", "name": "rs",
+                "profile": {"plugin": "rs", "k": str(k), "m": str(m)}})
+            await admin.pool_create("ec", pg_num=ec_pgs,
+                                    pool_type="erasure",
+                                    erasure_code_profile="rs")
+            await admin.pool_create("rep", pg_num=rep_pgs, size=3)
+            await wait(settled, "every PG active+clean")
+            walls["clean"] = time.perf_counter() - t
+            out["boot"] = {"up_in_s": walls["up_in"],
+                           "clean_s": walls["clean"],
+                           "epoch": admin.monc.osdmap.epoch,
+                           "d1": d1_sites()}
+            print(f"phase osd boot: pools ec (RS k={k} m={m}, {ec_pgs} "
+                  f"PGs) and rep (size 3, {rep_pgs} PGs); every PG "
+                  f"active+clean after {walls['clean']:.4f} s at "
+                  f"e{out['boot']['epoch']}; batched placements by call "
+                  f"site {out['boot']['d1']} (host clock)")
+            ec_pool = admin.monc.osdmap.lookup_pool("ec")
+            rep_pool = admin.monc.osdmap.lookup_pool("rep")
+            ec_io, rep_io = admin.open_ioctx("ec"), admin.open_ioctx("rep")
+
+            # 2-3. the EC write, every object in flight; read back; every
+            # stored shard against the CPU codec's chunk
+            await step("ec write", [ec_io.write_full(n, o)
+                                    for n, o in zip(names, objects)])
+            got = await step("ec read", [ec_io.read(n) for n in names])
+            check([hashlib.sha256(g).digest() for g in got] == digests,
+                  "an EC object read back differs from its source")
+            ec_place = state["ec_place"] = placement(ec_pool)
+            state["ec_pool"] = ec_pool
+            bad = sum(stored(acting[i], ec_pool, pg, i, names[j])
+                      != want[j][i]
+                      for j, (pg, acting) in enumerate(ec_place)
+                      for i in range(width))
+            check(bad == 0, f"{bad} stored EC shards differ from the CPU "
+                            f"codec's chunks")
+            report("ec write", total)
+            s = out["ec write"]
+            print(f"phase osd ec write: batch_fill {s['batch_fill']:.3f} "
+                  f"requests per launch; the queues' executor walls "
+                  f"{ {key: round(v, 4) for key, v in s['groups_s'].items()} }"
+                  f" s; all {n_obj * width} stored shards equal the CPU "
+                  f"codec's chunks")
+            report("ec read", total)
+
+            # 4. the replicated pool: three equal replicas of each object
+            await step("rep write", [rep_io.write_full(n, o)
+                                     for n, o in zip(names, objects)])
+            got = await step("rep read", [rep_io.read(n) for n in names])
+            check([hashlib.sha256(g).digest() for g in got] == digests,
+                  "a replicated object read back differs from its source")
+            bad = sum({stored(o, rep_pool, pg, -1, names[j])
+                       for o in acting} != {digests[j]} or len(acting) != 3
+                      for j, (pg, acting) in enumerate(placement(rep_pool)))
+            check(bad == 0, f"{bad} objects' replicas differ")
+            report("rep write", total, "; three equal replicas of each")
+            report("rep read", total)
+
+            # 5. stop the two OSDs holding the most EC shards; mark them
+            # down: reads of objects that lost a data shard decode
+            held = {}
+            for _, acting in ec_place:
+                for o in acting:
+                    held[o] = held.get(o, 0) + 1
+            lost = sorted(sorted(held, key=lambda o: (-held[o], o))[:2])
+            k1_counts()
+            for o in lost:
+                osd = live.pop(o)
+                state["epoch_lost"] += osd.crush_batches["epoch"]
+                state["backfill_lost"] += osd.crush_batches["backfill"]
+                await osd.shutdown()
+            # both in one proposal, so one epoch re-peers the PGs
+            await asyncio.gather(*[admin.mon_command(
+                {"prefix": "osd down", "id": o}) for o in lost])
+            await wait(lambda: not any(admin.monc.osdmap.is_up(o)
+                                       for o in lost), "the two OSDs down")
+            # the reads are timed once every PG has peered without them
+            # (active, degraded): a read of a PG still peering waits, and
+            # one served in an interval that closes is sent again
+            t = time.perf_counter()
+            await wait(lambda: settled(clean=False), "every PG active")
+            walls["repeer"] = time.perf_counter() - t
+            hit = [j for j, (_, acting) in enumerate(ec_place)
+                   if any(acting[i] in lost for i in range(k))]
+            got = await step("degraded read",
+                             [ec_io.read(names[j]) for j in hit])
+            check([hashlib.sha256(g).digest() for g in got]
+                  == [digests[j] for j in hit],
+                  "a degraded read differs from its source")
+            report("degraded read", len(hit) * size,
+                   f"; osd.{lost[0]} and osd.{lost[1]} ({held[lost[0]]} and "
+                   f"{held[lost[1]]} shards) stopped and marked down, every "
+                   f"PG active again after {walls['repeer']:.4f} s, then "
+                   f"{len(hit)} objects that lost a data shard read back "
+                   f"equal")
+
+            # 6. out: backfill rebuilds the lost shards elsewhere
+            async def recover():
+                await asyncio.gather(*[admin.mon_command(
+                    {"prefix": "osd out", "id": o}) for o in lost])
+                await wait(lambda: not any(admin.monc.osdmap.is_in(o)
+                                           for o in lost), "the two out")
+                await wait(settled, "recovery to active+clean")
+                # and every moved shard landed on its new OSD (a primary
+                # can report clean before its backfill target is known)
+                await wait(rebuilt_in_place, "every moved shard rebuilt")
+
+            await step("recovery", [recover()])
+            moved = bad = 0
+            for j, ((pg, acting), (_, before)) in enumerate(
+                    zip(placement(ec_pool), ec_place)):
+                for i in range(width):
+                    if acting[i] != before[i]:
+                        moved += 1
+                        check(acting[i] not in lost,
+                              f"{names[j]} shard {i} still on a lost OSD")
+                        bad += stored(acting[i], ec_pool, pg, i,
+                                      names[j]) != want[j][i]
+            check(moved > 0, "no shard moved after two OSDs went out")
+            check(bad == 0, f"{bad} rebuilt shards differ from the CPU "
+                            f"codec's chunks")
+            s = out["recovery"]
+            s["moved_shards"] = moved
+            s["epochs"] = admin.monc.osdmap.epoch - out["boot"]["epoch"]
+            report("recovery", moved * (size // k),
+                   f"; {moved} shards moved, each rebuilt equal to the CPU "
+                   f"codec's chunk; {s['epochs']} epochs since the pools "
+                   f"were clean")
+            out["lost"] = lost
+            out["d1_launches"] = d1_sites()
+            out["k1_by_queue"] = {f"osd.{o}/{j}": n for (o, j), n in
+                                  sorted(k1_counts().items())}
+            errors.check("osd")
+        finally:
+            if "admin" in state:
+                await state["admin"].shutdown()
+            for o in list(live.values()):
+                await o.shutdown()
+            await on_mons(stop_mons())
+
+    try:
+        asyncio.run(run())
+    finally:
+        mon_loop.call_soon_threadsafe(mon_loop.stop)
+        mon_thread.join(30)
+        mon_loop.close()
+        errors.close()
+    d1 = out["d1_launches"]
+    out["d1_wrapper"] = ck.crush_map_launches
+    out["k1_wrapper"] = kernel.gf_apply_launches
+    k1 = {"encode": out["ec write"]["k1"],
+          "degraded read": out["degraded read"]["k1"],
+          "rebuild": out["recovery"]["k1"]}
+    out["k1_launches"] = k1
+    if on_card:
+        check(out["d1_wrapper"] == sum(d1.values()),
+              f"crush_map launches {out['d1_wrapper']}, by call site {d1}")
+        check(out["k1_wrapper"] == sum(out["k1_by_queue"].values()),
+              f"gf_apply launches {out['k1_wrapper']}, by queue "
+              f"{out['k1_by_queue']}")
+        for site, (lo, hi) in d1_ranges.items():
+            check(lo <= d1[site] <= hi, f"crush_map launches at {site}: "
+                                        f"{d1[site]}, stated {lo}-{hi}")
+        for label, (lo, hi) in k1_ranges.items():
+            check(lo <= k1[label] <= hi, f"gf_apply launches at {label}: "
+                                         f"{k1[label]}, stated {lo}-{hi}")
+    out["walls"] = walls
+    out["spans_ms"] = spans
+    out["phase_s"] = time.perf_counter() - t_phase
+    kernel_ms = sum(spans.values())
+    print(f"phase osd: {out['phase_s']:.3f} s in all (host clock); "
+          f"crush_map launches by call site {d1}, gf_apply launches by step "
+          f"{k1}; their wrapper spans {kernel_ms:.4f} ms (host work "
+          f"included), {kernel_ms / 10 / out['phase_s']:.4f} % of the "
+          f"phase; card {smi}")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2786,9 +3328,16 @@ def main() -> int:
         mon = mon_phase(np, kernel, dev, smi, objects, tmpdir)
     finally:
         shutil.rmtree(tmpdir, ignore_errors=True)
+
+    # -- phase 16: an RS k=8 m=4 pool on 16 port OSDs -------------------
+    tmpdir = tempfile.mkdtemp(prefix="smoke-osd")
+    try:
+        osd = osd_phase(np, kernel, dev, smi, objects, tmpdir)
+    finally:
+        shutil.rmtree(tmpdir, ignore_errors=True)
     del objects
 
-    # -- phase 16: the probe's timing, the kernels line -----------------
+    # -- phase 17: the probe's timing, the kernels line -----------------
     cfg0 = kernel.TUNE_SPACE[0]
     k2_ms = median_ms(
         torch, lambda: kernel.gf_apply_checksum(ops, data, cfg0), 25, flush)
@@ -2807,7 +3356,12 @@ def main() -> int:
 
     print(json.dumps({"host_paths": {"native": host, "crushtool": tool,
                                      "psim": sim, "messenger": msgr,
-                                     "store": store, "mon": mon}}))
+                                     "store": store, "mon": mon,
+                                     "osd": {key: osd[key] for key in (
+                                         "boot", "ec write", "ec read",
+                                         "rep write", "rep read",
+                                         "degraded read", "recovery",
+                                         "phase_s", "lost")}}}))
     print(json.dumps({"kernels": [{
         "name": "gf_apply",
         "route": "cuda",
@@ -2817,14 +3371,16 @@ def main() -> int:
         "launches": launches + msgr["launches"] + sum(
             sum(c["launches"].values()) for c in codecs.values())
         + store["encode_launches"] + store["rebuild_launches"]
-        + sum(mon["k1_launches"].values()),
+        + sum(mon["k1_launches"].values())
+        + sum(osd["k1_launches"].values()),
         "launches_by_path": {"queue": launches} | {
             f"{plugin} {step}": n for plugin, c in codecs.items()
             for step, n in c["launches"].items()} | {
             "messenger encode": msgr["launches"],
             "store encode": store["encode_launches"],
             "store rebuild": store["rebuild_launches"]} | {
-            f"mon {step}": n for step, n in mon["k1_launches"].items()},
+            f"mon {step}": n for step, n in mon["k1_launches"].items()} | {
+            f"osd {step}": n for step, n in osd["k1_launches"].items()},
         "narrow_shapes": narrow,
         "mismatches": mismatches,
         "max_abs_err": max_abs_err,
@@ -2860,13 +3416,15 @@ def main() -> int:
         "launches": (crush["map_launches"] + osdmap_launches
                      + tool["launches"] + sim["launches"]
                      + store["d1_launches"]
-                     + sum(mon["d1_launches"].values())),
+                     + sum(mon["d1_launches"].values())
+                     + sum(osd["d1_launches"].values())),
         "launches_by_path": {"batch_do_rule_arrays": crush["map_launches"],
                              "osdmap": osdmap_launches,
                              "crushtool --test": tool["launches"],
                              "psim": sim["launches"],
                              "store placement": store["d1_launches"]} | {
-            f"mon {step}": n for step, n in mon["d1_launches"].items()},
+            f"mon {step}": n for step, n in mon["d1_launches"].items()} | {
+            f"osd {site}": n for site, n in osd["d1_launches"].items()},
         "mismatches": crush["map_mismatches"],
         "max_abs_err": crush["map_max_abs_err"],
         "ms": crush["map_ms"],

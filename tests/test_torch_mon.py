@@ -72,7 +72,8 @@ def _pkg(root):
         Keyring=m(root + ".auth.keyring").Keyring,
         shards=m(root + ".osd.shards"), payload=m(root + ".msg.payload"),
         admin_socket=m(root + ".common.admin_socket"),
-        crush_kernel=m(root + ".ops.crush_kernel"))
+        crush_kernel=m(root + ".ops.crush_kernel"),
+        osd_types=m(root + ".osd.types"))
 
 
 REF, PORT = _pkg("ceph_tpu"), _pkg("ceph_tpu_torch")
@@ -788,18 +789,59 @@ def test_osd_monitor_commands_match_reference(script, monkeypatch):
 
 
 def test_pg_scrub_waits_for_the_osd_messages_module():
-    """``pg scrub`` imports ``osd.messages`` (MPGScrub) lazily; the port
-    brings that module with the OSD core, so until then its mon answers
-    EIO naming the module where the reference parses the pgid."""
+    """``pg scrub`` imports ``osd.messages`` (MPGScrub) lazily; now that
+    the port has that module its mon parses the pgid and answers as the
+    reference's does (a bad pgid EINVAL, a pool that does not exist
+    ENOENT)."""
     async def run(p):
         steps = [{"prefix": "pg scrub", "pgid": "zz"},
                  {"prefix": "pg deep-scrub", "pgid": "1.0"}]
         return await _script(p, steps)
     ref = _run(run(REF))
     assert [r[1] for r in ref] == [-errno.EINVAL, -errno.ENOENT]
-    port = _run(run(PORT))
-    assert [r[1] for r in port] == [-errno.EIO, -errno.EIO]
-    assert all("ceph_tpu_torch.osd.messages" in r[2] for r in port)
+    assert _run(run(PORT)) == ref
+
+
+def test_pg_deep_scrub_reaches_a_port_primary():
+    """A port mon's ``pg deep-scrub`` reaches the port primary, whose
+    scrub finds every replica's data digest equal to the CRC_XATTR the
+    write recorded."""
+    from ceph_tpu_torch.osd.scrub import CRC_XATTR
+    from ceph_tpu_torch.qa.cluster import Cluster
+
+    async def run():
+        cl = Cluster(device="cpu")
+        admin = await cl.start(3)
+        await admin.pool_create("data", pg_num=4)
+        io = admin.open_ioctx("data")
+        for i in range(6):
+            await io.write_full(f"obj{i}", bytes([i]) * 5000)
+        m = admin.monc.osdmap
+        pool = m.lookup_pool("data")
+        pgid = m.object_locator_to_pg("obj0", PORT.osd_types.ObjectLocator(pool))
+        pgid = m.pools[pool].raw_pg_to_pg(pgid)
+        posd = cl.osds[m.pg_to_acting_osds(pgid)[1]]
+        pg = posd.pgs[pgid]
+        digests = {o.name: posd.store.getattr(pg.cid, o, CRC_XATTR)
+                   for o in posd.store.collection_list(pg.cid)
+                   if not o.name.startswith("_")}
+        pg.last_scrub_result = None
+        ack = await admin.mon_command({"prefix": "pg deep-scrub",
+                                       "pgid": str(pgid)})
+        for _ in range(400):
+            if pg.last_scrub_result is not None:
+                break
+            await asyncio.sleep(0.05)
+        res, deep = pg.last_scrub_result, \
+            posd.perf_scrub.dump()["scrubs_deep"]
+        await cl.stop()
+        return ack.retcode, digests, res, deep
+
+    rc, digests, res, deep = _run(run())
+    assert rc == 0 and digests and all(digests.values())
+    assert res is not None, "the scrub never ran"
+    assert res["errors"] == 0 and res["repaired"] == 0
+    assert deep >= 1
 
 
 # ------------------------------------- PGMonitor, LogMonitor, FSMonitor
