@@ -11,6 +11,9 @@ The port's copy of ``ceph_tpu.mon.osd_monitor``.  Its two placement
 sweeps (reweight-by-utilization and the pg_num growth check) map on the
 CRUSH host engine: the mon answers on its event loop, where a kernel
 launch and the fetch of its result would stall every other message.
+An up_thru request (``MOSDAlive``) that a committed or pending grant
+covers already is dropped, where the JAX package's mon proposes a new
+epoch for each one.
 """
 
 from __future__ import annotations
@@ -259,6 +262,13 @@ class OSDMonitor(PaxosService):
     def prepare_alive(self, m: MOSDAlive) -> None:
         if not self.osdmap.exists(m.osd_id):
             return   # stray daemon: a bad id would poison the incremental
+        if max(self.osdmap.get_up_thru(m.osd_id),
+               self.pending_inc.new_up_thru.get(m.osd_id, 0)) \
+                >= m.want_epoch:
+            # a duplicate: its grant is committed or pending already
+            # (OSDMonitor::preprocess_alive).  Granting it again is an
+            # epoch for nothing, which every OSD must advance through
+            return
         # An up_thru grant asserts "this osd could serve its interval",
         # which is exactly what a later PriorSet walk reads back as
         # maybe_went_rw.  In steady state grant immediately; but inside

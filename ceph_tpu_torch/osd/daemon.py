@@ -14,9 +14,13 @@ batched CRUSH placement: on a card the epoch advance and backfill
 planning launch the device descent, on the CPU they take the host engine.
 PGs that miss the same full map share one fetch of it from the mon
 (``ensure_map_history``), where the JAX package's fetch it once each; and
-with the sharded data plane each epoch's map is a copy of its own, where
-the JAX package's shards advance against the MonClient's map while the
-next incremental mutates it.
+with the sharded data plane each epoch's map is a copy of its own, kept
+for later interval walks, where the JAX package's shards advance against
+the MonClient's map while the next incremental mutates it, and its walks
+decode and prime each epoch's map anew.  An up_thru request asks for the
+waiting PG's interval start, where the JAX package's asks for its current
+epoch.  Scheduled scrubs take clean PGs only, where the JAX package's
+scrub every active PG, recovering ones too.
 It refuses at ``start()`` what the port does not carry yet: mesh mode
 (``osd_mesh_mode=on``) and process lanes (``osd_shard_lanes=process``).
 A class call (``OP_CALL``) gets an error reply while ``ceph_tpu_torch.cls``
@@ -51,7 +55,7 @@ from ceph_tpu_torch.osd.messages import (
 from ceph_tpu_torch.osd import extents
 from ceph_tpu_torch.osd.osdmap import OSDMap
 from ceph_tpu_torch.osd.pg import PG
-from ceph_tpu_torch.osd.types import NO_SHARD, ObjectLocator, PGId
+from ceph_tpu_torch.osd.types import NO_SHARD, PGId
 from ceph_tpu_torch.crush.constants import CRUSH_ITEM_NONE
 from ceph_tpu_torch.store.objectstore import ObjectStore, Transaction
 
@@ -260,14 +264,10 @@ class OSD(Dispatcher):
         """``OSDMap.map_objects_batch`` on this OSD's CRUSH engine and
         device (backfill planning), its batches counted under
         "backfill"."""
-        m = self.osdmap
-        pool = m.pools[pool_id]
-        loc = ObjectLocator(pool_id)
-        self._note_crush("backfill", m.prime_pgs(
-            [pool.raw_pg_to_pg(m.object_locator_to_pg(n, loc))
-             for n in names], self.crush_engine, self.device))
-        return m.map_objects_batch(pool_id, names, self.crush_engine,
-                                   self.device)
+        placed, launches = self.osdmap.map_objects_counted(
+            pool_id, names, self.crush_engine, self.device)
+        self._note_crush("backfill", launches)
+        return placed
 
     def note_cursor_lag(self, pgid, lag: int) -> None:
         """One PG's backfill shortfall (objects its worst target's
@@ -510,17 +510,21 @@ class OSD(Dispatcher):
             m = OSDMap.from_bytes(bytes(data))
         except Exception:
             return None
+        self._memo_map(m)
+        return m
+
+    def _memo_map(self, m: OSDMap) -> None:
+        """Keep ``m`` as its epoch's map for ``get_map``."""
         # gil-atomic:begin _map_cache memoized decode shared across
         # shard lanes: a racing store of the same epoch is idempotent
         # (both decoded the same committed bytes) and a racing evict
         # at worst double-decodes later; each dict op is one GIL step
-        self._map_cache[epoch] = m
+        self._map_cache[m.epoch] = m
         while len(self._map_cache) > 128:
             # default=None: two lanes racing the same oldest key must
             # both succeed (the read+pop pair is two GIL steps)
             self._map_cache.pop(next(iter(self._map_cache)), None)
         # gil-atomic:end
-        return m
 
     async def ensure_map_history(self, from_e: int, to_e: int) -> None:
         """Fill holes in the stored map history by fetching full maps
@@ -582,8 +586,13 @@ class OSD(Dispatcher):
             # the MonClient applies the next incremental to this same
             # map object in place, while the shards may still be
             # advancing PGs against it: give them a map of their own
-            # for this epoch (its placement cache then stays primed)
+            # for this epoch (its placement cache then stays primed).
+            # It stays at its epoch, so the interval walks of PGs made
+            # later read it, placements primed, from get_map: decoding
+            # the stored bytes instead primes every pool again on the
+            # host engine, per epoch walked (the JAX package's walks do)
             osdmap = OSDMap.from_bytes(osdmap.to_bytes())
+            self._memo_map(osdmap)
         self._apply_map(osdmap)
         if self.shards.process_lanes is not None:
             # process lanes: each lane worker hosts its slice of the
@@ -697,31 +706,38 @@ class OSD(Dispatcher):
             pg.ensure_peering()
         pg.maybe_trim_snaps()
 
-    def request_up_thru(self) -> None:
+    def request_up_thru(self, want: int) -> None:
         """WaitUpThru support (PG::build_prior need_up_thru): ask the
-        mon to commit our up_thru for the current epoch (MOSDAlive).
-        Deduped across PGs — once per epoch — but re-sent on a slow
+        mon to commit an up_thru of at least ``want``, the waiting PG's
+        interval start (MOSDAlive; OSD::queue_want_up_thru).  Deduped
+        across PGs — sent when the want rises — but re-sent on a slow
         timer so a request lost to a mon election doesn't wedge the
-        waiting peering loops."""
+        waiting peering loops.  The JAX package asks for its current
+        epoch once per epoch instead: while this OSD's map lags its
+        grant, every other OSD's grant is a new epoch and a new request,
+        and each request a new epoch (an up_thru storm)."""
+        if self.osdmap.get_up_thru(self.whoami) >= want:
+            return
         now = time.monotonic()
-        if getattr(self, "_alive_epoch", 0) >= self.osdmap.epoch \
+        # gil-atomic:begin _alive_want,_alive_sent_at shard threads race
+        # only benignly: at worst one extra request, which the mon drops
+        # as a duplicate
+        if getattr(self, "_alive_want", 0) >= want \
                 and now - getattr(self, "_alive_sent_at", 0.0) < 2.0:
             return
-        self._alive_epoch = self.osdmap.epoch
+        want = self._alive_want = max(want, getattr(self, "_alive_want", 0))
         self._alive_sent_at = now
+        # gil-atomic:end
         self.messenger.send_message(
-            MOSDAlive(self.whoami, self.osdmap.epoch),
+            MOSDAlive(self.whoami, want),
             self.monc.monmap.addr_of_rank(self.monc.cur_mon),
             peer_type="mon")
 
     def note_pg_active(self, pg: PG) -> None:
         """Primary finished peering.  WaitUpThru already proved our
-        up_thru covers this interval, so only re-assert when a later
-        map left it behind (the reference's once-per-epoch batching)."""
-        if self.osdmap.get_up_thru(self.whoami) \
-                >= pg.info.same_interval_since:
-            return
-        self.request_up_thru()
+        up_thru covers this interval, so this asks again only when a
+        later map left it behind."""
+        self.request_up_thru(pg.info.same_interval_since)
 
     def _load_stray_pg(self, pgid: PGId):
         """A peering query arrived for a PG we are not mapped to.  If a
@@ -1554,6 +1570,11 @@ class OSD(Dispatcher):
         pg = self.pgs.get(pgid)
         if pg is None or not pg.is_primary():
             return      # remapped/removed while the route was in flight
+        if not pg.is_fully_clean():
+            # PG::sched_scrub scrubs clean PGs only: a PG that still owes
+            # recovery or backfill would report the copies in flight as
+            # errors and "repair" them with pushes racing the recovery's
+            return
         info = pg.info
         if info.last_scrub_stamp == 0:
             # fresh PG: activation counts as scrubbed (no boot

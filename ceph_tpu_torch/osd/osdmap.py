@@ -449,16 +449,25 @@ class OSDMap(Encodable):
         to its pg, prime all distinct pgs in one kernel launch, then
         serve from the cache.  Returns [(pg, acting, acting_primary)]
         aligned with `names`."""
+        return self.map_objects_counted(pool_id, names, engine, device)[0]
+
+    def map_objects_counted(self, pool_id: int, names: List[str],
+                            engine: str = "device",
+                            device: DeviceLike = DEFAULT_DEVICE
+                            ) -> Tuple[List[Tuple[PGId, List[int], int]],
+                                       int]:
+        """``map_objects_batch``'s placements and the number of batch
+        launches its ``prime_pgs`` made."""
         loc = ObjectLocator(pool_id)
         pool = self.pools[pool_id]
         raw = [self.object_locator_to_pg(n, loc) for n in names]
         pgs = [pool.raw_pg_to_pg(r) for r in raw]
-        self.prime_pgs(pgs, engine, device)
+        launches = self.prime_pgs(pgs, engine, device)
         out = []
         for pg in pgs:
             acting, primary = self.pg_to_acting_osds(pg)
             out.append((pg, acting, primary))
-        return out
+        return out, launches
 
     def map_pgs_batch(self, pool_id: int, engine: str = "device",
                       device: DeviceLike = DEFAULT_DEVICE

@@ -735,7 +735,7 @@ class PG:
         # blocking on its dead partner's never-activated solo interval
         while self.osd.osdmap.get_up_thru(self.osd.whoami) \
                 < self.info.same_interval_since:
-            self.osd.request_up_thru()
+            self.osd.request_up_thru(self.info.same_interval_since)
             # lint: allow[RETRY19] map poll at grant-commit granularity
             await asyncio.sleep(0.05)
             if epoch != self.interval_epoch:

@@ -139,12 +139,11 @@ line) on any fault:
  16. an RS k=8 m=4 pool on 16 port OSDs: three port Monitors (phase 15's
      timers, FileDBs, on an event loop of their own) and 16 port OSDs,
      one per host, each with a crc32c BlockStore and a messenger on
-     127.0.0.1 TCP, two shards on inline lanes each (each OSD's EC batch
-     queue launching from its own executor thread), built by ``osd crush
-     build-simple`` and the OSDs' MOSDBoots; a port Rados on the card
-     makes an RS pool of 64
-     PGs and a replicated size-3 pool of 256 (half Ceph's ~100 PGs per
-     OSD: 16 OSDs share one event loop); phase 3's 64 objects are
+     127.0.0.1 TCP, two shards on thread lanes each (each shard's EC
+     batch queue launching from its own executor thread), built by ``osd
+     crush build-simple`` and the OSDs' MOSDBoots; a port Rados on the
+     card makes an RS pool of 128 PGs and a replicated size-3 pool of
+     512 (Ceph's ~100 PGs per OSD); phase 3's 64 objects are
      written into each with all in flight and read back (sha256), every
      EC shard in its acting OSD's store equal to the CPU codec's chunk
      and every replica to the others; the two OSDs holding the most EC
@@ -2482,23 +2481,18 @@ def mon_phase(np, kernel, dev, smi, objects, tmpdir, engine="device",
 
 
 OSD_N = 16             # one OSD per host (phase 14's cluster)
-# half of Ceph's ~100 PGs per OSD over the pool size, down to a power of
-# two: 16 x 50 / 12 -> 64 and 16 x 50 / 3 -> 256.  At the full count
-# (128 and 512) the PGs that re-peer when two OSDs go out left peering
-# queries unanswered past their 10 s timeout in one of two runs: 16 OSDs
-# share one event loop here
-OSD_EC_PGS, OSD_REP_PGS = 64, 256
-#: the cuts from the package's defaults: two shards per OSD on inline
-#: lanes (16 OSDs share one process and one event loop: each OSD's shards
-#: are tasks on it, and its EC batch queue has its own executor thread);
-#: a 20 s
-#: heartbeat grace (in the boot storm one OSD's loop waited up to 8 s for
-#: the interpreter lock, past the default 6 s, and live OSDs reported each
-#: other down); warnings only on stderr.  The failed OSDs are marked down
-#: and out by command, so no timer paces the phase.  Thread lanes stay
-#: out: with them a degraded EC read after two OSDs go down starves in
-#: both packages (ROADMAP queue C)
-OSD_CFG = {"osd_op_num_shards": 2, "osd_shard_lanes": "inline",
+# Ceph's ~100 PGs per OSD over the pool size, down to a power of two:
+# 16 x 100 / 12 -> 128 and 16 x 100 / 3 -> 512
+OSD_EC_PGS, OSD_REP_PGS = 128, 512
+#: the cuts from the package's defaults: two shards per OSD on thread
+#: lanes (16 OSDs share one process: each OSD's shards are threads with
+#: event loops of their own, each with its own EC batch queue, so K1 is
+#: launched from several threads at once); a 20 s heartbeat grace (in the
+#: boot storm one OSD's loop waited up to 8 s for the interpreter lock,
+#: past the default 6 s, and live OSDs reported each other down);
+#: warnings only on stderr.  The failed OSDs are marked down and out by
+#: command, so no timer paces the phase
+OSD_CFG = {"osd_op_num_shards": 2, "osd_shard_lanes": "thread",
            "osd_heartbeat_grace": 20.0, "log_level": 0}
 OSD_WAIT_S = 180.0     # bound on each wait for boot, clean PGs, recovery
 #: stated before the phase first ran on the card: crush_map launches by
@@ -2538,8 +2532,7 @@ def _pct(xs, q):
 
 
 def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
-              ec_pgs=OSD_EC_PGS, rep_pgs=OSD_REP_PGS, queue_mode="auto",
-              d1_ranges=OSD_D1_RANGES, k1_ranges=OSD_K1_RANGES):
+              ec_pgs=OSD_EC_PGS, rep_pgs=OSD_REP_PGS, queue_mode="auto"):
     """An RS k=8 m=4 pool on 16 port OSDs, written, read and recovered
     through the port's own daemons.
 
@@ -2980,10 +2973,10 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
         check(out["k1_wrapper"] == sum(out["k1_by_queue"].values()),
               f"gf_apply launches {out['k1_wrapper']}, by queue "
               f"{out['k1_by_queue']}")
-        for site, (lo, hi) in d1_ranges.items():
+        for site, (lo, hi) in OSD_D1_RANGES.items():
             check(lo <= d1[site] <= hi, f"crush_map launches at {site}: "
                                         f"{d1[site]}, stated {lo}-{hi}")
-        for label, (lo, hi) in k1_ranges.items():
+        for label, (lo, hi) in OSD_K1_RANGES.items():
             check(lo <= k1[label] <= hi, f"gf_apply launches at {label}: "
                                          f"{k1[label]}, stated {lo}-{hi}")
     out["walls"] = walls

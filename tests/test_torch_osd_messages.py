@@ -14,7 +14,10 @@
   two shard threads;
 - the port's repairs of the reference under thread lanes: BlockStore
   entries serialized, one map fetch per missing epoch shared by every
-  PG, and each epoch's map a copy of its own;
+  PG, each epoch's map a copy of its own (kept, primed, for the
+  interval walks), up_thru asked for once per
+  interval and granted once (no up_thru storm after a down-mark), and
+  scheduled scrubs on clean PGs only;
 - the lazy imports that waited for this slice now land in the port.
 
 Tolerance 0: bytes and counts are compared exactly.
@@ -148,7 +151,8 @@ def test_crush_engine_follows_the_device(monkeypatch, device, engine):
     pool = sorted(osd.osdmap.pools)[0]
     placed = osd.place_objects(pool, [f"obj{i}" for i in range(40)])
     assert len(placed) == 40
-    assert seen and set(seen) == {(engine, device)}
+    # one priming per window, on the OSD's engine and device
+    assert seen == [(engine, device)]
     assert osd.crush_batches["backfill"] == 1
 
 
@@ -378,6 +382,213 @@ def test_each_epoch_advances_on_a_map_of_its_own(monkeypatch):
     assert len({e for _, e in seen}) > 3
     assert all(m.epoch == e for m, e in seen)
     assert not monc_maps & {id(m) for m, _ in seen}
+
+
+def test_interval_walks_read_the_maps_the_advance_primed(monkeypatch):
+    """With the sharded data plane, every epoch's map that an OSD advanced
+    its PGs on is the one ``get_map`` gives the interval walks of PGs made
+    later (after an OSD goes out), and no scalar lookup primes any of
+    them again on the host engine."""
+    import sys as _sys
+
+    from ceph_tpu_torch.osd.daemon import OSD
+    from ceph_tpu_torch.osd.osdmap import OSDMap
+    from ceph_tpu_torch.qa.cluster import Cluster
+    applied, reprimed = {}, set()
+    real_apply, real_prime = OSD._apply_map, OSDMap._prime_batch
+
+    def apply_spy(self, osdmap):
+        applied.setdefault(self.whoami, {})[osdmap.epoch] = osdmap
+        return real_apply(self, osdmap)
+
+    def prime_spy(self, *args, **kw):
+        if _sys._getframe(1).f_code.co_name == "pg_to_up_acting_osds":
+            reprimed.add(id(self))
+        return real_prime(self, *args, **kw)
+
+    monkeypatch.setattr(OSD, "_apply_map", apply_spy)
+    monkeypatch.setattr(OSDMap, "_prime_batch", prime_spy)
+
+    async def run():
+        cl = Cluster(ctx_factory=_cluster_ctx(2, lanes="inline"),
+                     device="cpu")
+        admin = await cl.start(4)
+        await admin.pool_create("r", pg_num=16)
+        io = admin.open_ioctx("r")
+        await asyncio.gather(*[io.write_full(f"o{i}", b"%d" % i)
+                               for i in range(16)])
+        await cl.kill_osd(3)
+        await cl.mark_down_and_wait(admin, 3)
+        await admin.mon_command({"prefix": "osd out", "id": 3})
+        await cl.wait_epoch(admin, admin.monc.osdmap.epoch + 1)
+        for _ in range(100):
+            if all(o.osdmap.epoch == admin.monc.osdmap.epoch
+                   for o in cl.osds.values()):
+                break
+            await asyncio.sleep(0.05)
+        kept = {i: {e: o.get_map(e) for e in applied[i]}
+                for i, o in cl.osds.items()}
+        await cl.stop()
+        return kept
+
+    kept = asyncio.run(run())
+    walked = [m for i, maps in kept.items() for m in maps.values()]
+    assert len(walked) > 3 * 5
+    assert all(kept[i][e] is applied[i][e]
+               for i in kept for e in kept[i])
+    assert not reprimed & {id(m) for m in walked}
+
+
+def test_an_up_thru_request_asks_for_the_interval_start():
+    """The OSD asks the mon for an up_thru of at least the waiting PG's
+    interval start: once per want (the map's epoch moving on sends
+    nothing new), again only for a higher want or after the 2 s re-send
+    timer, and never for a want its map's up_thru covers."""
+    from ceph_tpu_torch.mon.messages import MOSDAlive
+    from ceph_tpu_torch.mon.monmap import MonMap
+    from ceph_tpu_torch.msg.types import EntityAddr
+    osd = _osd()
+    osd.osdmap = _port_map()
+    osd.monc.monmap = MonMap()
+    osd.monc.monmap.add("a", EntityAddr("127.0.0.1", 6789, 1))
+    sent = []
+    osd.messenger.send_message = lambda m, addr, peer_type=None: \
+        sent.append(m.want_epoch) if isinstance(m, MOSDAlive) else None
+    covered = osd.osdmap.get_up_thru(0)
+    osd.request_up_thru(covered)
+    assert sent == []
+    want = covered + 1
+    for _ in range(5):
+        osd.request_up_thru(want)
+        osd.osdmap.epoch += 1       # other OSDs' grants move the map on
+    assert sent == [want]
+    osd.request_up_thru(want + 3)
+    assert sent == [want, want + 3]
+    osd._alive_sent_at -= 2.5       # the re-send timer
+    osd.request_up_thru(want)
+    assert sent == [want, want + 3, want + 3]
+
+
+def test_the_mon_drops_an_up_thru_request_already_granted():
+    """A port mon grants an up_thru want once: a second MOSDAlive that
+    the committed (or pending) up_thru covers proposes no epoch."""
+    from ceph_tpu_torch.mon.messages import MOSDAlive
+    from ceph_tpu_torch.qa.cluster import Cluster
+
+    async def run():
+        cl = Cluster(device="cpu")
+        admin = await cl.start(2)
+        osdmon = cl.mons[0].osdmon
+        await asyncio.sleep(0.5)
+        epochs = [admin.monc.osdmap.epoch]
+        want = epochs[0]
+        osdmon.prepare_alive(MOSDAlive(0, want))
+        await cl.wait_epoch(admin, want + 1)
+        granted = admin.monc.osdmap.get_up_thru(0)
+        for w in (want, want - 1, granted):
+            osdmon.prepare_alive(MOSDAlive(0, w))
+        await asyncio.sleep(0.5)
+        epochs.append(admin.monc.osdmap.epoch)
+        await cl.stop()
+        return want, granted, epochs
+
+    want, granted, epochs = asyncio.run(run())
+    assert granted >= want
+    assert epochs[1] == epochs[0] + 1
+
+
+def test_a_down_mark_costs_the_osds_one_up_thru_grant_each(monkeypatch):
+    """Thread lanes, two shards each, 16 OSDs and an RS k=8 m=4 pool: two
+    OSDs stop and are marked down; every PG peers again with at most one
+    up_thru grant per OSD, and the objects that lost a shard read back.
+    (The JAX package's OSDs ask for up_thru at every epoch they see while
+    their map lags the grant, and its mon grants every ask: each grant is
+    an epoch and each epoch more asks; the degraded reads starve.)"""
+    from ceph_tpu_torch.mon import osd_monitor
+    from ceph_tpu_torch.qa.cluster import Cluster
+    grants = []
+    real = osd_monitor.OSDMonitor.propose_pending
+
+    def spy(self, done=None):
+        if self.pending_inc.new_up_thru:
+            grants.append((self.pending_inc.epoch,
+                           dict(self.pending_inc.new_up_thru)))
+        return real(self, done)
+
+    monkeypatch.setattr(osd_monitor.OSDMonitor, "propose_pending", spy)
+    make = _cluster_ctx(2)
+
+    def ctx(name):
+        c = make(name)
+        c.config.set("osd_heartbeat_grace", 20.0)
+        c.config.set("mon_osd_down_out_interval", 3600.0)
+        c.config.set("lockdep", False)
+        return c
+
+    rng = np.random.default_rng(23)
+    objs = {f"o{i}": rng.integers(0, 256, 1 << 14, dtype=np.uint8).tobytes()
+            for i in range(32)}
+
+    async def run():
+        cl = Cluster(ctx_factory=ctx, device="cpu")
+        admin = await cl.start(16)
+        await admin.mon_command({
+            "prefix": "osd erasure-code-profile set", "name": "rs",
+            "profile": {"plugin": "rs", "k": "8", "m": "4"}})
+        await admin.pool_create("ec", pg_num=16, pool_type="erasure",
+                                erasure_code_profile="rs")
+        io = admin.open_ioctx("ec")
+        await asyncio.gather(*[io.write_full(n, d) for n, d in objs.items()])
+        for o in (3, 7):
+            await cl.kill_osd(o)
+        await asyncio.gather(*[admin.mon_command(
+            {"prefix": "osd down", "id": o}) for o in (3, 7)])
+        while any(admin.monc.osdmap.is_up(o) for o in (3, 7)):
+            await asyncio.sleep(0.05)
+        down_epoch = admin.monc.osdmap.epoch
+        got = await asyncio.gather(*[io.read(n) for n in objs])
+        await cl.stop()
+        return down_epoch, got
+
+    down_epoch, got = asyncio.run(run())
+    assert got == list(objs.values())
+    after = [osds for e, osds in grants if e > down_epoch]
+    assert len(after) <= 14, after
+    assert all(len(g) == 1 for g in after)
+    per_osd = [o for g in after for o in g]
+    assert len(per_osd) == len(set(per_osd)), after
+
+
+def test_scheduled_scrubs_take_clean_pgs_only():
+    """The scrub scheduler queues a due scrub on a clean primary PG and
+    none on one that still owes recovery (the JAX package's scheduler
+    takes every active PG: its scrubs report the shards in flight as
+    errors and push "repairs" racing the recovery)."""
+    from ceph_tpu_torch.osd.types import PGId
+    osd = _osd()
+
+    class Info:
+        last_scrub_stamp = last_deep_scrub_stamp = 1
+
+    class FakePG:
+        def __init__(self, clean):
+            self.clean, self.info, self.queued = clean, Info(), []
+            self._scrub_queued = False
+            self.pgid = PGId(1, 0)
+
+        def is_primary(self):
+            return True
+
+        def is_fully_clean(self):
+            return self.clean
+
+        def queue_op(self, m):
+            self.queued.append(m.deep)
+
+    for clean in (False, True):
+        pg = osd.pgs[PGId(1, 0)] = FakePG(clean)
+        osd._sched_scrub_pg(PGId(1, 0), 10_000, False, False, 100, 1e9)
+        assert pg.queued == ([False] if clean else [])
 
 
 # ------------------------------------------------------------ lazy imports
