@@ -37,7 +37,8 @@ messenger every daemon is built on):
              messages, pglog, sequencer (the per-PG op window), snaps,
              hitset, tiering, scrub, extents (shared-memory payloads),
              shards (the shard hash, the cross-loop future and courier,
-             the sharded data plane)
+             the sharded data plane), laneipc and lanes (process lanes:
+             shard workers fed by shared-memory rings)
   client/    the Objecter (op routing, corked batch placement) and the
              librados-style Rados and IoCtx
   qa/        cluster: an in-process mon + OSDs + clients harness

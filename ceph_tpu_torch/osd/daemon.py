@@ -22,7 +22,8 @@ waiting PG's interval start, where the JAX package's asks for its current
 epoch.  Scheduled scrubs take clean PGs only, where the JAX package's
 scrub every active PG, recovering ones too.
 It refuses at ``start()`` what the port does not carry yet: mesh mode
-(``osd_mesh_mode=on``) and process lanes (``osd_shard_lanes=process``).
+(``osd_mesh_mode=on``).  With process lanes each lane worker builds its
+OSD on this one's device.
 A class call (``OP_CALL``) gets an error reply while ``ceph_tpu_torch.cls``
 does not exist.
 """
@@ -100,7 +101,7 @@ class _ShardIntake:
             osd.shards.perf.inc("direct_local_ops")
         if isinstance(m, MOSDOpBatch):
             osd._dispatch_op_batch(m)
-        else:
+        elif not osd._park_ahead_of_map(m):
             # post(), never inline: deliver() runs on the SENDER's
             # call stack (LocalConnection.send / the TCP reader) — an
             # inline dispatch would execute the receiver's apply
@@ -337,11 +338,6 @@ class OSD(Dispatcher):
             raise RuntimeError(
                 "osd_mesh_mode=on: mesh mode (parallel/mesh_exec) is not "
                 "ported to ceph_tpu_torch yet (ROADMAP A8)")
-        if self.shards.enabled and self.shards.lane_backend == "process":
-            raise RuntimeError(
-                "osd_shard_lanes=process: process lanes (osd/lanes, "
-                "osd/laneipc) are not ported to ceph_tpu_torch yet "
-                "(ROADMAP A7.6)")
         # sharded-plane commit semantics: barrier-less (RAM) stores
         # ack-on-apply — the commit thread's GIL handoff is the
         # tracer's repl_commit cost, and there is no durability point
@@ -928,7 +924,8 @@ class OSD(Dispatcher):
             self._dispatch_rep_ack_batch(m)
             return True
         if isinstance(m, _PG_BOUND):
-            self.shards.route(m.pgid, self._dispatch_pg_msg, m)
+            if not self._park_ahead_of_map(m):
+                self.shards.route(m.pgid, self._dispatch_pg_msg, m)
             return True
         if isinstance(m, MOSDPing):
             self._handle_ping(m)
@@ -940,6 +937,25 @@ class OSD(Dispatcher):
                 return tc.on_reply(m)
             return False
         return False
+
+    def _park_ahead_of_map(self, m: Message) -> bool:
+        """Hold a peering query or an activation sent from an epoch this
+        OSD has not applied yet (OSD::require_same_or_newer_map) until
+        that map's advance has made the PG instances it addresses; the
+        map that reaches it dispatches it again.  Answered now, a query
+        for an EC shard whose instance the advance has yet to make would
+        be answered by this OSD's instance of another shard of the PG,
+        complete, and the primary would push the new shard nothing.  The
+        JAX package answers at once.  Runs on the intake side, where maps
+        are applied, so the advance is on the shard's ring ahead of it."""
+        if not (isinstance(m, MPGQuery)
+                or (isinstance(m, MPGLog) and m.activate)):
+            return False
+        if m.epoch <= self.osdmap.epoch:
+            return False
+        with self._wm_lock:
+            self._waiting_maps.append(m)
+        return True
 
     def _dispatch_op_batch(self, m: MOSDOpBatch) -> None:
         """Unpack a corked client batch: one wire frame / one local

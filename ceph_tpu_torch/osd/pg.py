@@ -29,7 +29,10 @@ Redesign notes (vs the boost::statechart original):
 
 The port's copy of ``ceph_tpu.osd.pg``.  Backfill planning places each
 listing window through ``OSD.place_objects`` (the OSD's CRUSH engine and
-device).
+device).  A peer's info answers the peering round that asked for it: a
+notify from an earlier round is dropped, where the JAX package takes it
+(after an EC shard move it describes the peer's old shard, complete, and
+the new one is never filled).
 """
 
 from __future__ import annotations
@@ -1267,6 +1270,13 @@ class PG:
     def on_notify(self, m: MPGNotify) -> None:
         fut = self._notify_waiters.get(m.from_osd)
         if fut is not None and not fut.done():
+            if m.epoch != self.interval_epoch:
+                # the answer to a query of an earlier peering round
+                # (the reference drops peering messages older than the
+                # last peering reset): after an EC shard move it
+                # describes the peer's copy of its OLD shard, and taken
+                # for the new one it leaves that copy unfilled
+                return
             fut.set_result(m.info())
             return
         if (self.state == STATE_ACTIVE and self.is_primary()

@@ -2501,6 +2501,32 @@ OSD_D1_RANGES = {"objecter": (2, 12), "epoch": (150, 3000),
                  "backfill": (0, 400)}
 OSD_K1_RANGES = {"encode": (8, 64), "degraded read": (1, 64),
                  "rebuild": (1, 200)}
+#: the process-lane run: the same cluster with each OSD's two shards as
+#: worker processes (32 of them), each hosting its slice of the PGs in a
+#: MemStore of its own and launching K1 and D1 from a CUDA context of its
+#: own; each OSD's parent keeps the messenger, the mon session and the
+#: maps and hosts no PGs.  Stated before the run first ran on the card:
+#: crush_map launches by call site and process, gf_apply launches by step
+#: (summed over the workers), and the least number of workers that
+#: launch K1 at the EC write
+OSD_LANE_D1_RANGES = {"objecter": (2, 12), "parent epoch": (150, 3000),
+                      "lane epoch": (300, 6000), "backfill": (0, 400)}
+OSD_LANE_K1_RANGES = {"encode": (8, 96), "degraded read": (8, 96),
+                      "rebuild": (1, 300)}
+OSD_LANE_K1_WORKERS = 12
+#: the process-lane run's cuts from the defaults beside OSD_CFG: rings and
+#: extent pools sized for 4 MiB objects (the default 4 MiB ring cannot
+#: carry a 4 MiB write's frame, and a full 4 MiB extent pool falls back to
+#: inline frames)
+OSD_LANE_CUT = {"osd_lane_ring_bytes": "16m",
+                "osd_lane_extent_pool_bytes": "64m"}
+#: and half the PGs: 16 parents' loops share this process's interpreter
+#: and route every ring hop, and at each epoch each parent primes every PG
+#: of both pools, which it does not host (the JAX package's behaviour,
+#: kept), with 32 workers busy on the same 8 host cores; at 128 + 512 one
+#: of eight runs on the card stalled those loops past a peering query's
+#: 10 s and a worker logged "peering failed"
+OSD_LANE_EC_PGS, OSD_LANE_REP_PGS = 64, 256
 
 
 def chunk_digests(objects, k, m):
@@ -2531,8 +2557,27 @@ def _pct(xs, q):
     return xs[min(len(xs) - 1, int(round(q / 100 * (len(xs) - 1))))]
 
 
+def smi_query(*args):
+    """``nvidia-smi`` with ``args``: its output, or why it failed."""
+    try:
+        return subprocess.run(["nvidia-smi", *args], capture_output=True,
+                              text=True, timeout=30, check=True).stdout
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"nvidia-smi failed: {e}"
+
+
+def gpu_used_mib():
+    """The card's used memory in MiB, or None."""
+    try:
+        return float(smi_query("--query-gpu=memory.used",
+                               "--format=csv,noheader,nounits").split()[0])
+    except (ValueError, IndexError):
+        return None
+
+
 def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
-              ec_pgs=OSD_EC_PGS, rep_pgs=OSD_REP_PGS, queue_mode="auto"):
+              ec_pgs=OSD_EC_PGS, rep_pgs=OSD_REP_PGS, queue_mode="auto",
+              lanes="thread"):
     """An RS k=8 m=4 pool on 16 port OSDs, written, read and recovered
     through the port's own daemons.
 
@@ -2552,7 +2597,15 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
     primaries' encode, the degraded reads' decode and the rebuild, in the
     OSDs' EC batch queues.  Fails on an ERROR logged by any
     daemon, on a mismatch, and on launch counts outside the stated
-    ranges."""
+    ranges.
+
+    With ``lanes="process"`` each OSD's shards are worker processes that
+    host every PG in stores of their own: the phase reads PG states,
+    launch counts and ERROR records from the workers (``lane_state``),
+    checks shards through reads (every object after the write, the
+    degraded reads, every object again after recovery), counts D1 by
+    process, fails if a parent launches K1 or a worker dies, and prints
+    each worker's device memory."""
     import hashlib
 
     import torch
@@ -2570,16 +2623,29 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
     from ceph_tpu_torch.store.kv import FileDB
     from ceph_tpu_torch.store.types import CollectionId, ObjectId
     on_card = dev.type == "cuda"
+    proc = lanes == "process"
+    tag = "osd-lanes" if proc else "osd"
+    d1_ranges = OSD_LANE_D1_RANGES if proc else OSD_D1_RANGES
+    k1_ranges = OSD_LANE_K1_RANGES if proc else OSD_K1_RANGES
     n_obj, width = len(objects), k + m
     size = len(objects[0])
     total = n_obj * size
     names = [f"rbd_data.osd.{i:016x}" for i in range(n_obj)]
-    cfg = dict(MON_CFG, **OSD_CFG)
+    cut = dict(OSD_CFG, osd_shard_lanes=lanes, **(OSD_LANE_CUT if proc
+                                                   else {}))
+    cfg = dict(MON_CFG, **cut)
     if queue_mode != "auto":
         cfg["osd_ec_batch_device"] = queue_mode
-    walls, spans, out = {}, {}, {"cut": dict(OSD_CFG), "osds": osds}
+    walls, spans, out = {}, {}, {"cut": cut, "osds": osds}
+    if proc:
+        out["worker_mib"] = {}
     group_steps = ("group_fold", "group_device", "group_split")
     errors = DaemonErrors()
+    if proc:
+        import logging
+        # a parent logs a worker's death there
+        errors.roots.append(logging.getLogger("ceph-tpu-torch.osd.lanes"))
+        errors.roots[-1].addHandler(errors.handler)
     t_phase = t0 = time.perf_counter()
     want = chunk_digests(objects, k, m)
     digests = [hashlib.sha256(o).digest() for o in objects]
@@ -2594,27 +2660,64 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
 
     async def wait(cond, what):
         deadline = time.perf_counter() + OSD_WAIT_S
-        while not cond():
+        while True:
+            await poll_lanes()
+            if cond():
+                return
             check(time.perf_counter() < deadline,
                   f"{what}: not after {OSD_WAIT_S} s")
-            await asyncio.sleep(0.02)
+            await asyncio.sleep(0.1 if proc else 0.02)
 
     live = {}              # osd id -> OSD
     state = {"epoch_lost": 0, "backfill_lost": 0}
     queue_launches = {}    # (osd, queue index) -> launches so far
+    #: (osd, lane) -> that worker's last ``lane_state``; a stopped OSD's
+    #: workers keep their last one
+    lane_state = {}
+
+    async def poll_lanes():
+        """Every live OSD's workers' ``lane_state``; fails on a dead
+        worker."""
+        if not proc:
+            return
+        keys, handles = [], []
+        for i, o in live.items():
+            for lane in o.shards.process_lanes or ():
+                check(not lane.dead, f"osd.{i} lane {lane.idx}: its worker "
+                                     f"died")
+                keys.append((i, lane.idx))
+                handles.append(lane)
+        await asyncio.wait_for(asyncio.gather(
+            *[lane.wait_ready() for lane in handles]), OSD_WAIT_S)
+        lane_state.update(zip(keys, await asyncio.gather(
+            *[lane.admin_rpc({"prefix": "lane_state"}) for lane in handles])))
 
     def k1_counts():
+        if proc:
+            for (i, j), r in lane_state.items():
+                for name, n in r["queue_launches"].items():
+                    queue_launches[i, f"lane{j}/{name}"] = n
         for i, o in live.items():
             for j, q in o.ec_queues().items():
                 queue_launches[i, j] = q.launches
         return dict(queue_launches)
 
+    def lane_sum(key, site=None):
+        return sum(r[key][site] if site else r[key]
+                   for r in lane_state.values())
+
     def d1_sites():
-        return {"objecter": state["admin"].objecter.crush_batches,
-                "epoch": state["epoch_lost"] + sum(
-                    o.crush_batches["epoch"] for o in live.values()),
-                "backfill": state["backfill_lost"] + sum(
-                    o.crush_batches["backfill"] for o in live.values())}
+        sites = {"objecter": state["admin"].objecter.crush_batches,
+                 "epoch": state["epoch_lost"] + sum(
+                     o.crush_batches["epoch"] for o in live.values()),
+                 "backfill": state["backfill_lost"] + sum(
+                     o.crush_batches["backfill"] for o in live.values())}
+        if proc:
+            sites["parent epoch"] = sites.pop("epoch")
+            sites["lane epoch"] = lane_sum("crush_batches", "epoch")
+            sites["backfill"] += lane_sum("crush_batches", "backfill")
+            sites = {site: sites[site] for site in OSD_LANE_D1_RANGES}
+        return sites
 
     def queue_perf(key):
         """(sum, count) of one of the OSDs' ec_batch_queue figures."""
@@ -2634,6 +2737,18 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
             return False
         if clean and mp.pg_temp:
             return False
+        want = sum(p.pg_num for p in mp.pools.values())
+        if proc:
+            states = {}
+            for (i, _), r in lane_state.items():
+                if i not in live:
+                    continue
+                if r["osdmap_epoch"] < mp.epoch:
+                    return False
+                states.update(r["primaries"])
+            return len(states) == want and all(
+                st == "active" and (fully or not clean)
+                for st, fully in states.values())
         primaries = 0
         for o in live.values():
             for pg in list(o.pgs.values()):
@@ -2642,7 +2757,7 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
                             clean and not pg.is_fully_clean()):
                         return False
                     primaries += 1
-        return primaries == sum(p.pg_num for p in mp.pools.values())
+        return primaries == want
 
     def placement(pool_id):
         """Each object's PG and acting set, on a copy of the client's map
@@ -2683,10 +2798,14 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
         """Run ``coros`` all at once: the wall and each one's latency
         (host clock), K1's launches by queue and D1's by call site over
         the step, and the wrapper spans (CUDA events)."""
+        await poll_lanes()
         k1_0, d1_0 = k1_counts(), d1_sites()
         fill_0, walls_0 = queue_perf("batch_fill"), {
             key: queue_perf(key)[0] for key in group_steps}
         w_k1, w_d1 = kernel.gf_apply_launches, ck.crush_map_launches
+        lw_0 = {key: (r["pid"], r["gf_apply_launches"],
+                      r["crush_map_launches"])
+                for key, r in lane_state.items()}
         lat = []
 
         async def one(c):
@@ -2700,6 +2819,7 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
             t = time.perf_counter()
             res = await asyncio.gather(*[one(c) for c in coros])
             walls[label] = time.perf_counter() - t
+        await poll_lanes()
         k1_1, d1_1 = k1_counts(), d1_sites()
         fill_1 = queue_perf("batch_fill")
         k1 = {q: n - k1_0.get(q, 0) for q, n in k1_1.items()}
@@ -2715,9 +2835,33 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
              / max(1, fill_1[1] - fill_0[1]),
              "groups_s": {key: queue_perf(key)[0] - walls_0[key]
                           for key in group_steps}}
-        if on_card:
-            w_k1 = kernel.gf_apply_launches - w_k1
-            w_d1 = ck.crush_map_launches - w_d1
+        w_k1 = kernel.gf_apply_launches - w_k1
+        w_d1 = ck.crush_map_launches - w_d1
+        if proc:
+            # the wrappers' own counts in the workers, by worker pid
+            lw = {r["pid"]: (r["gf_apply_launches"] - lw_0.get(key, (0, 0, 0))[1],
+                             r["crush_map_launches"] - lw_0.get(key, (0, 0, 0))[2])
+                  for key, r in lane_state.items()}
+            s["parent_k1"] = w_k1
+            s["lane_k1"] = sum(n for n, _ in lw.values())
+            s["lane_d1"] = sum(n for _, n in lw.values())
+            s["k1_workers"] = sum(n > 0 for n, _ in lw.values())
+            s["d1_workers"] = sum(n > 0 for _, n in lw.values())
+        if on_card and proc:
+            check(w_k1 == 0 == len(k1_ev),
+                  f"{label}: a parent launched gf_apply {w_k1} times")
+            check(s["lane_k1"] == s["k1"],
+                  f"{label}: the workers' gf_apply launches "
+                  f"{s['lane_k1']}, their queues' {s['k1']}")
+            check(w_d1 == s["d1"]["objecter"] + s["d1"]["parent epoch"]
+                  == len(d1_ev),
+                  f"{label}: crush_map launches in this process {w_d1}, "
+                  f"by call site {s['d1']}, timed {len(d1_ev)}")
+            check(s["lane_d1"] == s["d1"]["lane epoch"]
+                  + s["d1"]["backfill"],
+                  f"{label}: the workers' crush_map launches "
+                  f"{s['lane_d1']}, by call site {s['d1']}")
+        elif on_card:
             check(w_k1 == s["k1"] == len(k1_ev),
                   f"{label}: gf_apply launches {w_k1}, the queues' "
                   f"{s['k1']}, timed {len(k1_ev)}")
@@ -2729,14 +2873,16 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
 
     def report(label, n_bytes, note=""):
         s = out[label]
-        print(f"phase osd {label}: {s['wall_s']:.4f} s, "
+        where = (f" from {s['k1_workers']} worker processes (the parents "
+                 f"{s['parent_k1']}), spans not measured (in the workers)"
+                 if proc else f", wrapper spans {s['k1_span_ms']:.4f} ms")
+        print(f"phase {tag} {label}: {s['wall_s']:.4f} s, "
               f"{n_bytes / s['wall_s'] / 1e6:.1f} MB/s of object data, op "
               f"p50 {s['p50_ms']:.2f} ms, p99 {s['p99_ms']:.2f} ms; "
-              f"gf_apply {s['k1']} launches {s['k1_queues']}, wrapper "
-              f"spans {s['k1_span_ms']:.4f} ms; crush_map by call site "
-              f"{s['d1']}, wrapper spans {s['d1_span_ms']:.4f} ms (each "
-              f"launch and its fetch on an OSD's or the client's event "
-              f"loop){note} (host clock)")
+              f"gf_apply {s['k1']} launches {s['k1_queues']}{where}; "
+              f"crush_map by call site {s['d1']}, wrapper spans in this "
+              f"process {s['d1_span_ms']:.4f} ms (each launch and its "
+              f"fetch on an event loop){note} (host clock)")
 
     # the mons run on an event loop of their own, as separate daemons do:
     # on the OSDs' loop, a second's stall there outlasts their lease
@@ -2784,6 +2930,31 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
             if x.running:
                 await x.shutdown()
 
+    def lane_memory(when):
+        """The workers' device memory, printed: nvidia-smi's per-process
+        lines (a container may show its own pids, or none), and the card's
+        used memory over what it was before the OSDs started, per
+        worker."""
+        text = smi_query("--query-compute-apps=pid,used_memory",
+                         "--format=csv").strip()
+        print(f"phase {tag} {when}: nvidia-smi --query-compute-apps="
+              f"pid,used_memory --format=csv:\n{text}")
+        used, workers = gpu_used_mib(), sum(1 for (i, _) in lane_state
+                                            if i in live)
+        if used is None or state.get("used_mib") is None or not workers:
+            return
+        per = (used - state["used_mib"]) / workers
+        out["worker_mib"][when] = per
+        print(f"phase {tag} {when}: the card's used memory {used:.0f} MiB, "
+              f"{used - state['used_mib']:.0f} MiB over the "
+              f"{state['used_mib']:.0f} MiB before the OSDs started: "
+              f"{per:.1f} MiB per worker over {workers} workers; card {smi}")
+
+    async def read_all(io, label, what):
+        got = await asyncio.gather(*[io.read(n) for n in names])
+        check([hashlib.sha256(g).digest() for g in got] == digests,
+              f"{label}: {what} read back differs from its source")
+
     async def run():
         try:
             # 1. three mons, the cluster by command, the OSDs' own boots
@@ -2796,6 +2967,12 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
             await admin.connect()
             await admin.mon_command({"prefix": "osd crush build-simple",
                                      "num_osds": osds, "osds_per_host": 1})
+            if proc and on_card:
+                state["used_mib"] = gpu_used_mib()
+                print(f"phase {tag} boot: shared memory for the rings "
+                      f"(df -h /dev/shm): " + subprocess.run(
+                          ["df", "-h", "/dev/shm"], capture_output=True,
+                          text=True).stdout.strip().replace("\n", "; "))
             started = await asyncio.gather(*[start_osd(i, blob)
                                              for i in range(osds)])
             live.update(enumerate(started))
@@ -2804,14 +2981,22 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
                                and admin.monc.osdmap.is_in(i)
                                for i in range(osds)), "OSDs up and in")
             walls["up_in"] = time.perf_counter() - t
+            if proc:
+                await poll_lanes()
+                walls["lanes_ready"] = time.perf_counter() - t
+                print(f"phase {tag} boot: {len(lane_state)} lane workers "
+                      f"answer lane_state after {walls['lanes_ready']:.4f} "
+                      f"s, on {sorted({r['device'] for r in lane_state.values()})}, "
+                      f"pids {sorted(r['pid'] for r in lane_state.values())} "
+                      f"(host clock)")
             o0 = live[0]
-            print(f"phase osd boot: 3 mons and {osds} OSDs (one per host, "
+            print(f"phase {tag} boot: 3 mons and {osds} OSDs (one per host, "
                   f"crc32c BlockStores, TCP on 127.0.0.1, device "
                   f"{o0.device}, CRUSH engine {o0.crush_engine}) up and in "
                   f"after {walls['up_in']:.4f} s; {o0.shards.num_shards} "
                   f"shards on {o0.shards.active_backend} lanes per OSD, EC "
                   f"queue mode {o0.ec_queue.mode}; config cut from the "
-                  f"defaults: {OSD_CFG} (host clock)")
+                  f"defaults: {cut} (host clock)")
             await admin.mon_command({
                 "prefix": "osd erasure-code-profile set", "name": "rs",
                 "profile": {"plugin": "rs", "k": str(k), "m": str(m)}})
@@ -2825,11 +3010,13 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
                            "clean_s": walls["clean"],
                            "epoch": admin.monc.osdmap.epoch,
                            "d1": d1_sites()}
-            print(f"phase osd boot: pools ec (RS k={k} m={m}, {ec_pgs} "
+            print(f"phase {tag} boot: pools ec (RS k={k} m={m}, {ec_pgs} "
                   f"PGs) and rep (size 3, {rep_pgs} PGs); every PG "
                   f"active+clean after {walls['clean']:.4f} s at "
                   f"e{out['boot']['epoch']}; batched placements by call "
                   f"site {out['boot']['d1']} (host clock)")
+            if proc and on_card:
+                lane_memory("after boot")
             ec_pool = admin.monc.osdmap.lookup_pool("ec")
             rep_pool = admin.monc.osdmap.lookup_pool("rep")
             ec_io, rep_io = admin.open_ioctx("ec"), admin.open_ioctx("rep")
@@ -2843,19 +3030,24 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
                   "an EC object read back differs from its source")
             ec_place = state["ec_place"] = placement(ec_pool)
             state["ec_pool"] = ec_pool
-            bad = sum(stored(acting[i], ec_pool, pg, i, names[j])
-                      != want[j][i]
-                      for j, (pg, acting) in enumerate(ec_place)
-                      for i in range(width))
-            check(bad == 0, f"{bad} stored EC shards differ from the CPU "
-                            f"codec's chunks")
+            if proc:
+                shards_note = ("the shards live in the workers' stores: "
+                               "checked through reads")
+            else:
+                bad = sum(stored(acting[i], ec_pool, pg, i, names[j])
+                          != want[j][i]
+                          for j, (pg, acting) in enumerate(ec_place)
+                          for i in range(width))
+                check(bad == 0, f"{bad} stored EC shards differ from the "
+                                f"CPU codec's chunks")
+                shards_note = (f"all {n_obj * width} stored shards equal "
+                               f"the CPU codec's chunks")
             report("ec write", total)
             s = out["ec write"]
-            print(f"phase osd ec write: batch_fill {s['batch_fill']:.3f} "
+            print(f"phase {tag} ec write: batch_fill {s['batch_fill']:.3f} "
                   f"requests per launch; the queues' executor walls "
                   f"{ {key: round(v, 4) for key, v in s['groups_s'].items()} }"
-                  f" s; all {n_obj * width} stored shards equal the CPU "
-                  f"codec's chunks")
+                  f" s; {shards_note}")
             report("ec read", total)
 
             # 4. the replicated pool: three equal replicas of each object
@@ -2864,11 +3056,15 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
             got = await step("rep read", [rep_io.read(n) for n in names])
             check([hashlib.sha256(g).digest() for g in got] == digests,
                   "a replicated object read back differs from its source")
-            bad = sum({stored(o, rep_pool, pg, -1, names[j])
-                       for o in acting} != {digests[j]} or len(acting) != 3
-                      for j, (pg, acting) in enumerate(placement(rep_pool)))
-            check(bad == 0, f"{bad} objects' replicas differ")
-            report("rep write", total, "; three equal replicas of each")
+            if not proc:
+                bad = sum({stored(o, rep_pool, pg, -1, names[j])
+                           for o in acting} != {digests[j]}
+                          or len(acting) != 3
+                          for j, (pg, acting) in enumerate(
+                              placement(rep_pool)))
+                check(bad == 0, f"{bad} objects' replicas differ")
+            report("rep write", total, "" if proc
+                   else "; three equal replicas of each")
             report("rep read", total)
 
             # 5. stop the two OSDs holding the most EC shards; mark them
@@ -2878,6 +3074,7 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
                 for o in acting:
                     held[o] = held.get(o, 0) + 1
             lost = sorted(sorted(held, key=lambda o: (-held[o], o))[:2])
+            await poll_lanes()      # the stopped workers' last counts
             k1_counts()
             for o in lost:
                 osd = live.pop(o)
@@ -2916,9 +3113,10 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
                 await wait(lambda: not any(admin.monc.osdmap.is_in(o)
                                            for o in lost), "the two out")
                 await wait(settled, "recovery to active+clean")
-                # and every moved shard landed on its new OSD (a primary
-                # can report clean before its backfill target is known)
-                await wait(rebuilt_in_place, "every moved shard rebuilt")
+                if not proc:
+                    # and every moved shard landed on its new OSD
+                    await wait(rebuilt_in_place,
+                               "every moved shard rebuilt")
 
             await step("recovery", [recover()])
             moved = bad = 0
@@ -2929,23 +3127,49 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
                         moved += 1
                         check(acting[i] not in lost,
                               f"{names[j]} shard {i} still on a lost OSD")
-                        bad += stored(acting[i], ec_pool, pg, i,
-                                      names[j]) != want[j][i]
+                        if not proc:
+                            bad += stored(acting[i], ec_pool, pg, i,
+                                          names[j]) != want[j][i]
             check(moved > 0, "no shard moved after two OSDs went out")
             check(bad == 0, f"{bad} rebuilt shards differ from the CPU "
                             f"codec's chunks")
+            if proc:
+                # every object read back after recovery, from the
+                # rebuilt shards' new homes among the rest
+                t = time.perf_counter()
+                await read_all(ec_io, "after recovery", "an EC object")
+                await read_all(rep_io, "after recovery",
+                               "a replicated object")
+                walls["read after recovery"] = time.perf_counter() - t
+                if on_card:
+                    lane_memory("after recovery")
             s = out["recovery"]
             s["moved_shards"] = moved
             s["epochs"] = admin.monc.osdmap.epoch - out["boot"]["epoch"]
             report("recovery", moved * (size // k),
-                   f"; {moved} shards moved, each rebuilt equal to the CPU "
-                   f"codec's chunk; {s['epochs']} epochs since the pools "
+                   f"; {moved} shards moved, " + (
+                       f"then all {2 * n_obj} objects read back equal in "
+                       f"{walls['read after recovery']:.4f} s"
+                       if proc else "each rebuilt equal to the CPU codec's "
+                       "chunk") + f"; {s['epochs']} epochs since the pools "
                    f"were clean")
             out["lost"] = lost
             out["d1_launches"] = d1_sites()
+            await poll_lanes()      # the workers' counts at the end
             out["k1_by_queue"] = {f"osd.{o}/{j}": n for (o, j), n in
                                   sorted(k1_counts().items())}
-            errors.check("osd")
+            if proc:
+                lane_errors = {f"osd.{i}/lane{j}": r["errors"]
+                               for (i, j), r in lane_state.items()
+                               if r["errors"]}
+                check(not lane_errors, f"lane workers logged {lane_errors}")
+                out["lane_wrappers"] = {
+                    "gf_apply": lane_sum("gf_apply_launches"),
+                    "crush_map": lane_sum("crush_map_launches")}
+                out["workers"] = len(lane_state)
+                out["lane_devices"] = sorted(
+                    {r["device"] for r in lane_state.values()})
+            errors.check(tag)
         finally:
             if "admin" in state:
                 await state["admin"].shutdown()
@@ -2963,6 +3187,11 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
     d1 = out["d1_launches"]
     out["d1_wrapper"] = ck.crush_map_launches
     out["k1_wrapper"] = kernel.gf_apply_launches
+    if proc:
+        # this process launches only the Objecter's and the parents'
+        # placements; the workers every K1 and the rest of D1
+        out["d1_wrapper"] += out["lane_wrappers"]["crush_map"]
+        out["k1_wrapper"] += out["lane_wrappers"]["gf_apply"]
     k1 = {"encode": out["ec write"]["k1"],
           "degraded read": out["degraded read"]["k1"],
           "rebuild": out["recovery"]["k1"]}
@@ -2973,17 +3202,22 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
         check(out["k1_wrapper"] == sum(out["k1_by_queue"].values()),
               f"gf_apply launches {out['k1_wrapper']}, by queue "
               f"{out['k1_by_queue']}")
-        for site, (lo, hi) in OSD_D1_RANGES.items():
+        for site, (lo, hi) in d1_ranges.items():
             check(lo <= d1[site] <= hi, f"crush_map launches at {site}: "
                                         f"{d1[site]}, stated {lo}-{hi}")
-        for label, (lo, hi) in OSD_K1_RANGES.items():
+        for label, (lo, hi) in k1_ranges.items():
             check(lo <= k1[label] <= hi, f"gf_apply launches at {label}: "
                                          f"{k1[label]}, stated {lo}-{hi}")
+        if proc:
+            workers = out["ec write"]["k1_workers"]
+            check(workers >= OSD_LANE_K1_WORKERS,
+                  f"gf_apply launched from {workers} workers at the EC "
+                  f"write, stated at least {OSD_LANE_K1_WORKERS}")
     out["walls"] = walls
     out["spans_ms"] = spans
     out["phase_s"] = time.perf_counter() - t_phase
     kernel_ms = sum(spans.values())
-    print(f"phase osd: {out['phase_s']:.3f} s in all (host clock); "
+    print(f"phase {tag}: {out['phase_s']:.3f} s in all (host clock); "
           f"crush_map launches by call site {d1}, gf_apply launches by step "
           f"{k1}; their wrapper spans {kernel_ms:.4f} ms (host work "
           f"included), {kernel_ms / 10 / out['phase_s']:.4f} % of the "
@@ -3328,6 +3562,14 @@ def main() -> int:
         osd = osd_phase(np, kernel, dev, smi, objects, tmpdir)
     finally:
         shutil.rmtree(tmpdir, ignore_errors=True)
+    # the same on process lanes: 32 worker processes host the PGs
+    tmpdir = tempfile.mkdtemp(prefix="smoke-osd-lanes")
+    try:
+        lanes = osd_phase(np, kernel, dev, smi, objects, tmpdir,
+                          ec_pgs=OSD_LANE_EC_PGS, rep_pgs=OSD_LANE_REP_PGS,
+                          lanes="process")
+    finally:
+        shutil.rmtree(tmpdir, ignore_errors=True)
     del objects
 
     # -- phase 17: the probe's timing, the kernels line -----------------
@@ -3354,7 +3596,13 @@ def main() -> int:
                                          "boot", "ec write", "ec read",
                                          "rep write", "rep read",
                                          "degraded read", "recovery",
-                                         "phase_s", "lost")}}}))
+                                         "phase_s", "lost")},
+                                     "osd lanes": {key: lanes[key] for key in (
+                                         "boot", "ec write", "ec read",
+                                         "rep write", "rep read",
+                                         "degraded read", "recovery",
+                                         "phase_s", "lost", "workers",
+                                         "worker_mib", "walls")}}}))
     print(json.dumps({"kernels": [{
         "name": "gf_apply",
         "route": "cuda",
@@ -3365,7 +3613,8 @@ def main() -> int:
             sum(c["launches"].values()) for c in codecs.values())
         + store["encode_launches"] + store["rebuild_launches"]
         + sum(mon["k1_launches"].values())
-        + sum(osd["k1_launches"].values()),
+        + sum(osd["k1_launches"].values())
+        + sum(lanes["k1_launches"].values()),
         "launches_by_path": {"queue": launches} | {
             f"{plugin} {step}": n for plugin, c in codecs.items()
             for step, n in c["launches"].items()} | {
@@ -3373,7 +3622,9 @@ def main() -> int:
             "store encode": store["encode_launches"],
             "store rebuild": store["rebuild_launches"]} | {
             f"mon {step}": n for step, n in mon["k1_launches"].items()} | {
-            f"osd {step}": n for step, n in osd["k1_launches"].items()},
+            f"osd {step}": n for step, n in osd["k1_launches"].items()} | {
+            f"osd lanes {step}": n
+            for step, n in lanes["k1_launches"].items()},
         "narrow_shapes": narrow,
         "mismatches": mismatches,
         "max_abs_err": max_abs_err,
@@ -3410,14 +3661,17 @@ def main() -> int:
                      + tool["launches"] + sim["launches"]
                      + store["d1_launches"]
                      + sum(mon["d1_launches"].values())
-                     + sum(osd["d1_launches"].values())),
+                     + sum(osd["d1_launches"].values())
+                     + sum(lanes["d1_launches"].values())),
         "launches_by_path": {"batch_do_rule_arrays": crush["map_launches"],
                              "osdmap": osdmap_launches,
                              "crushtool --test": tool["launches"],
                              "psim": sim["launches"],
                              "store placement": store["d1_launches"]} | {
             f"mon {step}": n for step, n in mon["d1_launches"].items()} | {
-            f"osd {site}": n for site, n in osd["d1_launches"].items()},
+            f"osd {site}": n for site, n in osd["d1_launches"].items()} | {
+            f"osd lanes {site}": n
+            for site, n in lanes["d1_launches"].items()},
         "mismatches": crush["map_mismatches"],
         "max_abs_err": crush["map_max_abs_err"],
         "ms": crush["map_ms"],

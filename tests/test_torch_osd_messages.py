@@ -8,16 +8,18 @@
   reference's ``backoff`` import fails again as it does on Python 3.12;
 - the device seam: the CRUSH engine follows the OSD's and the client's
   device (the device descent on a card, the host engine on the CPU); the
-  default device raises without a card; mesh mode and process lanes are
-  refused at ``start()``; a class call gets an error reply naming
+  default device raises without a card; mesh mode is refused at
+  ``start()``; a class call gets an error reply naming
   ``ceph_tpu_torch.cls``; the EC batch queues' launch counts add up under
   two shard threads;
 - the port's repairs of the reference under thread lanes: BlockStore
   entries serialized, one map fetch per missing epoch shared by every
   PG, each epoch's map a copy of its own (kept, primed, for the
   interval walks), up_thru asked for once per
-  interval and granted once (no up_thru storm after a down-mark), and
-  scheduled scrubs on clean PGs only;
+  interval and granted once (no up_thru storm after a down-mark),
+  scheduled scrubs on clean PGs only, and a peering query sent from an
+  epoch the OSD has not applied waiting for that map (C2: else another
+  EC shard's copy of the PG answers it);
 - the lazy imports that waited for this slice now land in the port.
 
 Tolerance 0: bytes and counts are compared exactly.
@@ -173,7 +175,6 @@ def test_the_default_device_raises_without_a_card():
 
 @pytest.mark.parametrize("cfg,names", [
     ({"osd_mesh_mode": "on"}, "A8"),
-    ({"osd_op_num_shards": 2, "osd_shard_lanes": "process"}, "A7.6"),
 ])
 def test_unported_modes_are_refused_at_start(cfg, names):
     osd = _osd(cfg=cfg)
@@ -591,11 +592,148 @@ def test_scheduled_scrubs_take_clean_pgs_only():
         assert pg.queued == ([False] if clean else [])
 
 
+def _notify_from_an_earlier_round(root):
+    """A primary peering at e37 waits for osd.11's info on shard 3; the
+    answer to its e36 query of osd.11's old shard 10 (complete, 27'1)
+    comes first, then the e37 answer (shard 3, empty).  Returns the info
+    the round took (last_update)."""
+    from test_torch_osdmap import ref_map
+
+    def mod(name):
+        return importlib.import_module(f"{root}.{name}")
+    ctx = mod("common.context").Context("osd.8")
+    ctx.config.set("osd_op_num_shards", 1)
+    store = mod("store.memstore").MemStore()
+    store.mkfs()
+    kw = {"device": "cpu"} if root == "ceph_tpu_torch" else {}
+    osd = mod("osd.daemon").OSD(
+        ctx, 8, store, mod("msg.messenger").Messenger(
+            ctx, mod("msg.types").EntityName("osd", "8")),
+        mod("mon.monmap").MonMap(), **kw)
+    m1 = mod("osd.osdmap").OSDMap.from_bytes(
+        ref_map(degraded=False).to_bytes())
+    PGId = mod("osd.types").PGId
+    PGInfo = mod("osd.pglog").PGInfo
+    MPGNotify = mod("osd.messages").MPGNotify
+
+    async def run():
+        osd.osdmap = m1
+        pg = mod("osd.pg").PG(osd, PGId(2, 24).with_shard(0), 2,
+                              m1.pools[2])
+        pg.interval_epoch = 37
+        fut = asyncio.get_running_loop().create_future()
+        pg._notify_waiters[11] = fut
+        old = PGInfo(PGId(2, 24).with_shard(10))
+        old.last_update = mod("osd.pglog").EVersion(27, 1)
+        pg.on_notify(MPGNotify(PGId(2, 24).with_shard(10), 36, old, 11))
+        pg.on_notify(MPGNotify(PGId(2, 24).with_shard(3), 37,
+                               PGInfo(PGId(2, 24).with_shard(3)), 11))
+        return str((await fut).last_update)
+
+    return asyncio.run(run())
+
+
+def test_a_notify_answers_only_the_round_that_asked():
+    """C2, the cause seen in the recipe (two OSDs of 16 out, every PG
+    deep-scrubbed as soon as it reports clean): after the out, CRUSH's
+    indep retries moved osd.11 from shard 10 of a PG to shard 3.  The
+    primary's e36 round asked osd.11 for shard 10; the map moved on, and
+    the e37 round asked for shard 3, but took the e36 answer (complete)
+    as osd.11's info: shard 3 was never filled, and a scrub of the PG
+    just reported clean found the object missing there.  The port drops
+    the earlier round's answer."""
+    assert _notify_from_an_earlier_round("ceph_tpu_torch") == "0'0"
+
+
+def test_the_jax_package_takes_a_notify_from_an_earlier_round(
+        monkeypatch):
+    """The fault as the JAX package has it."""
+    install_ref_backoff(monkeypatch)
+    assert _notify_from_an_earlier_round("ceph_tpu") == "27'1"
+
+
+def _query_ahead_of_the_map(root):
+    """An OSD on map e1 holds a complete copy of shard ``other`` of an EC
+    PG; a primary on e2 queries it for shard ``j``, its position in the
+    acting set, which the e2 advance makes.  Returns the infos the OSD
+    sends back (last_update, backfill_complete) before e2 and after."""
+    from test_torch_osdmap import ref_map
+
+    def mod(name):
+        return importlib.import_module(f"{root}.{name}")
+    ctx = mod("common.context").Context("osd.0")
+    ctx.config.set("osd_op_num_shards", 1)
+    store = mod("store.memstore").MemStore()
+    store.mkfs()
+    store.mount()
+    msgr = mod("msg.messenger").Messenger(
+        ctx, mod("msg.types").EntityName("osd", "0"))
+    kw = {"device": "cpu"} if root == "ceph_tpu_torch" else {}
+    osd = mod("osd.daemon").OSD(ctx, 0, store, msgr,
+                                mod("mon.monmap").MonMap(), **kw)
+    OSDMap = mod("osd.osdmap").OSDMap
+    PGId = mod("osd.types").PGId
+    m1 = OSDMap.from_bytes(ref_map(degraded=False).to_bytes())
+    pool = 2                                   # EC k=4 m=2
+    ps = next(ps for ps in range(m1.pools[pool].pg_num)
+              if 0 in m1.pg_to_acting_osds(PGId(pool, ps))[0])
+    acting = list(m1.pg_to_acting_osds(PGId(pool, ps))[0])
+    j = acting.index(0)
+    other = (j + 1) % len(acting)
+    sent = []
+    osd.send_osd = lambda peer, msg: sent.append((peer, msg))
+
+    def infos():
+        return [(p, str(msg.pgid), str(msg.info().last_update),
+                 msg.info().backfill_complete) for p, msg in sent
+                if type(msg).__name__ == "MPGNotify"]
+
+    async def run():
+        osd.osdmap = m1
+        old = mod("osd.pg").PG(osd, PGId(pool, ps).with_shard(other), pool,
+                               m1.pools[pool])
+        old.info.last_update = mod("osd.pglog").EVersion(1, 5)
+        osd.pgs[old.pgid] = old
+        osd.ms_dispatch(mod("osd.messages").MPGQuery(
+            PGId(pool, ps).with_shard(j), m1.epoch + 1, 3))
+        before = infos()
+        m2 = OSDMap.from_bytes(m1.to_bytes())
+        m2.apply_incremental(mod("osd.osdmap").Incremental(m1.epoch + 1))
+        osd._apply_map(m2)
+        await asyncio.sleep(0.05)
+        for pg in list(osd.pgs.values()):
+            pg.stop()
+        return before, infos(), f"{pool}.{ps:x}s{j}"
+
+    return asyncio.run(run())
+
+
+def test_a_query_ahead_of_the_map_waits_for_its_shard():
+    """C2: after an out, CRUSH's indep retries move a live OSD's EC shard
+    to another position.  The new primary's peering query reached it
+    before the map that makes the new shard's instance; the OSD's copy of
+    the old shard answered, complete, and the primary pushed the new
+    shard nothing: a scrub of the PG just reported clean found one object
+    missing there.  The query now waits for its map, and the new, empty
+    instance answers."""
+    before, after, pgid = _query_ahead_of_the_map("ceph_tpu_torch")
+    assert before == []
+    assert after == [(3, pgid, "0'0", True)]
+
+
+def test_the_jax_package_answers_a_query_from_another_shards_copy(
+        monkeypatch):
+    """The fault as the JAX package has it."""
+    install_ref_backoff(monkeypatch)
+    before, after, pgid = _query_ahead_of_the_map("ceph_tpu")
+    assert before == [(3, pgid, "1'5", True)]
+
+
 # ------------------------------------------------------------ lazy imports
 
 def test_the_lazy_imports_land_in_the_port(tmp_path):
-    """osd/shards' extents branch and the mon's MPGScrub resolve in the
-    port; the lane transport (osd/lanes) stays unported."""
+    """osd/shards' extents and lane branches and the mon's MPGScrub
+    resolve in the port."""
     from ceph_tpu_torch.osd import extents
     from ceph_tpu_torch.osd.messages import MPGScrub
     from ceph_tpu_torch.common.encoding import Decoder
@@ -606,5 +744,9 @@ def test_the_lazy_imports_land_in_the_port(tmp_path):
     assert Decoder.extent_factory is not None
     assert Decoder.extent_factory.__module__ == extents.__name__
     assert MPGScrub.__module__ == "ceph_tpu_torch.osd.messages"
-    assert importlib.util.find_spec("ceph_tpu_torch.osd.lanes") is None
-    assert importlib.util.find_spec("ceph_tpu_torch.osd.laneipc") is None
+    from ceph_tpu_torch.osd import shards
+    src = inspect.getsource(shards.ShardedDataPlane)
+    assert src.count("from ceph_tpu_torch.osd import lanes as lanes_mod") \
+        == 2
+    lanes = importlib.import_module("ceph_tpu_torch.osd.lanes")
+    assert lanes.ShmRing.__module__ == "ceph_tpu_torch.osd.laneipc"
