@@ -41,6 +41,10 @@ messenger every daemon is built on):
              shard workers fed by shared-memory rings)
   client/    the Objecter (op routing, corked batch placement) and the
              librados-style Rados and IoCtx
+  cls/       object classes: the method registry and ClsContext, and
+             lock, version, refcount, rbd, journal, numops, rgw (the
+             bucket index), log, timeindex, user, statelog, replica_log,
+             inotable
   qa/        cluster: an in-process mon + OSDs + clients harness
   compressor/ zlib, bz2 and lzma behind the compressor registry
   store/     the key-value stores (MemDB, FileDB) and the object stores

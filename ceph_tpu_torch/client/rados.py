@@ -6,8 +6,7 @@ here: every data op is a coroutine; the CLI wraps them in asyncio.run.
 
 The port's copy of ``ceph_tpu.client.rados``.  ``Rados`` takes a
 ``device`` (default ``cuda``; raises without a card) for its Objecter's
-batched placement.  ``IoCtx.exec`` (object classes) waits for
-``ceph_tpu_torch.cls``, which is not ported yet.
+batched placement.
 """
 
 from __future__ import annotations

@@ -16,8 +16,7 @@ rejected on EC pools like the reference; xattrs replicate to all shards.
 
 The port's copy of ``ceph_tpu.osd.backend``.  Device work goes only
 through the OSD's EC batch queue (so the matrix-apply kernel on a card);
-the codec's own backend stays "host".  Object-class calls import
-``ceph_tpu_torch.cls`` only for a vector that holds one.
+the codec's own backend stays "host".
 """
 
 from __future__ import annotations
@@ -515,18 +514,6 @@ def execute_read_op(store, cid, soid, op: OSDOp) -> int:
     return op.rval
 
 
-def _expand_write_calls(store, cid, soid, ops, read_fn=None, size_fn=None):
-    """``cls.expand_write_calls``, imported only for a vector that holds
-    a class call: a vector without one comes back as it went in.  Object
-    classes are not ported yet, and the OSD answers an ``OP_CALL`` before
-    it reaches a backend."""
-    if not any(op.op == OP_CALL for op in ops):
-        return 0, list(ops)
-    from ceph_tpu_torch import cls as cls_mod
-    return cls_mod.expand_write_calls(store, cid, soid, ops,
-                                      read_fn=read_fn, size_fn=size_fn)
-
-
 def build_write_txn(store, cid, soid, ops: List[OSDOp],
                     txn: Transaction) -> Tuple[int, bool]:
     """Translate write-class ops into store txn ops (do_osd_ops write
@@ -617,7 +604,8 @@ class ReplicatedBackend(PGBackend):
                 txn.clone(pg.cid, src, soid)
         # object-class write methods run HERE, against committed state,
         # and their staged logical ops splice into the batch (cls)
-        rv, batch_ops = _expand_write_calls(
+        from ceph_tpu_torch import cls as cls_mod
+        rv, batch_ops = cls_mod.expand_write_calls(
             self.osd.store, pg.cid, soid,
             [op for op in m.ops if op.op not in (OP_ROLLBACK, OP_WATCH)])
         if rv < 0:
@@ -979,14 +967,15 @@ class ECBackend(PGBackend):
         # whole-object data reads are refused (shards hold chunks) —
         # staged ops then translate like client ops, so a method
         # staging omap gets the same EOPNOTSUPP a client would
+        from ceph_tpu_torch import cls as cls_mod
+
         def _no_data_read(offset=0, length=-1):
-            from ceph_tpu_torch import cls as cls_mod
             raise cls_mod._DataReadUnsupported()
 
         def _ec_size():
             return int(self.osd.store.getattr(pg.cid, soid, SIZE_XATTR))
 
-        rv, batch_ops = _expand_write_calls(
+        rv, batch_ops = cls_mod.expand_write_calls(
             self.osd.store, pg.cid, soid, m.ops,
             read_fn=_no_data_read, size_fn=_ec_size)
         if rv < 0:

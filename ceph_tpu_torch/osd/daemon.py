@@ -24,8 +24,6 @@ scrub every active PG, recovering ones too.
 It refuses at ``start()`` what the port does not carry yet: mesh mode
 (``osd_mesh_mode=on``).  With process lanes each lane worker builds its
 OSD on this one's device.
-A class call (``OP_CALL``) gets an error reply while ``ceph_tpu_torch.cls``
-does not exist.
 """
 
 from __future__ import annotations
@@ -51,7 +49,7 @@ from ceph_tpu_torch.osd.messages import (
     MOSDECSubOpWriteReply, MOSDOp, MOSDOpBatch, MOSDOpReply, MOSDPing,
     MOSDRepAckBatch, MOSDRepOp, MOSDRepOpReply, MPGLog, MPGLogRequest,
     MPGNotify, MPGObjectList, MPGPush, MPGPushReply, MPGQuery, MPGRemove,
-    MPGScrub, MPGScrubMap, MPGScrubScan, MWatchNotifyAck, OP_CALL,
+    MPGScrub, MPGScrubMap, MPGScrubScan, MWatchNotifyAck,
 )
 from ceph_tpu_torch.osd import extents
 from ceph_tpu_torch.osd.osdmap import OSDMap
@@ -70,14 +68,6 @@ _PG_BOUND = (MOSDOp, MOSDRepOp, MOSDECSubOpWrite, MOSDECSubOpRead,
              MPGQuery, MPGRemove, MPGNotify, MPGLogRequest, MPGLog,
              MPGPush, MPGPushReply, MPGObjectList, MWatchNotifyAck,
              MPGScrub, MPGScrubScan, MPGScrubMap)
-
-
-_NO_CLS = "object classes (ceph_tpu_torch.cls) are not ported yet"
-
-
-def _cls_ported() -> bool:
-    import importlib.util
-    return importlib.util.find_spec("ceph_tpu_torch.cls") is not None
 
 
 class _ShardIntake:
@@ -1170,18 +1160,6 @@ class OSD(Dispatcher):
             self.messenger.put_dispatch_throttle(m)
             self.reply_to(m, MOSDOpReply(
                 m.tid, -errno.EAGAIN, map_epoch=self.osdmap.epoch))
-            return
-        if any(o.op == OP_CALL for o in m.ops) and not _cls_ported():
-            # object classes are not ported yet: answer every op of the
-            # vector instead of letting OSDOp.is_write's lazy import of
-            # ceph_tpu_torch.cls kill the op's task
-            for o in m.ops:
-                o.rval = -errno.EOPNOTSUPP
-                o.outdata = _NO_CLS.encode()
-            self.messenger.put_dispatch_throttle(m)
-            self.logger.warning(f"osd.{self.whoami}: {m.oid}: {_NO_CLS}")
-            self.reply_to(m, MOSDOpReply(
-                m.tid, -errno.EOPNOTSUPP, m.ops, self.osdmap.epoch))
             return
         # per-op tracking (OpTracker; admin socket dump_ops_in_flight)
         m._tracked = self.op_tracker.create(

@@ -172,6 +172,7 @@ imports nothing of JAX and nothing of the JAX package.
 import asyncio
 import concurrent.futures
 import contextlib
+import errno
 import io
 import json
 import multiprocessing
@@ -2498,9 +2499,9 @@ OSD_WAIT_S = 180.0     # bound on each wait for boot, clean PGs, recovery
 #: stated before the phase first ran on the card: crush_map launches by
 #: call site and gf_apply launches by step, (least, most)
 OSD_D1_RANGES = {"objecter": (2, 12), "epoch": (150, 3000),
-                 "backfill": (0, 400)}
+                 "backfill": (0, 400), "cls objecter": (0, 4)}
 OSD_K1_RANGES = {"encode": (8, 64), "degraded read": (1, 64),
-                 "rebuild": (1, 200)}
+                 "rebuild": (1, 200), "cls write": (2, 32)}
 #: the process-lane run: the same cluster with each OSD's two shards as
 #: worker processes (32 of them), each hosting its slice of the PGs in a
 #: MemStore of its own and launching K1 and D1 from a CUDA context of its
@@ -2510,9 +2511,10 @@ OSD_K1_RANGES = {"encode": (8, 64), "degraded read": (1, 64),
 #: (summed over the workers), and the least number of workers that
 #: launch K1 at the EC write
 OSD_LANE_D1_RANGES = {"objecter": (2, 12), "parent epoch": (150, 3000),
-                      "lane epoch": (300, 6000), "backfill": (0, 400)}
+                      "lane epoch": (300, 6000), "backfill": (0, 400),
+                      "cls objecter": (0, 4)}
 OSD_LANE_K1_RANGES = {"encode": (8, 96), "degraded read": (8, 96),
-                      "rebuild": (1, 300)}
+                      "rebuild": (1, 300), "cls write": (2, 32)}
 OSD_LANE_K1_WORKERS = 12
 #: the process-lane run's cuts from the defaults beside OSD_CFG: rings and
 #: extent pools sized for 4 MiB objects (the default 4 MiB ring cannot
@@ -2527,6 +2529,17 @@ OSD_LANE_CUT = {"osd_lane_ring_bytes": "16m",
 #: of eight runs on the card stalled those loops past a peering query's
 #: 10 s and a worker logged "peering failed"
 OSD_LANE_EC_PGS, OSD_LANE_REP_PGS = 64, 256
+#: the class step, run after the replicated read on both lane backends:
+#: the first OSD_CLS_REWRITES EC objects rewritten by ``[OP_CALL
+#: version.inc {ver eq 0}, OP_WRITEFULL]`` vectors, all in flight (the
+#: RGW object-version fence on an EC pool: K1 encodes each staged
+#: write_full at its primary); an RGW bucket index of one entry per
+#: replicated object, listed in pages of OSD_CLS_PAGE.  The step's
+#: entries in the ranges above ("cls write", "cls objecter": the
+#: Objecter's placements while the step runs) were stated before it first
+#: ran on the card
+OSD_CLS_REWRITES = 16
+OSD_CLS_PAGE = 16
 
 
 def chunk_digests(objects, k, m):
@@ -2637,6 +2650,7 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
     if queue_mode != "auto":
         cfg["osd_ec_batch_device"] = queue_mode
     walls, spans, out = {}, {}, {"cut": cut, "osds": osds}
+    lats = {}              # step -> each op's latency (host clock)
     if proc:
         out["worker_mib"] = {}
     group_steps = ("group_fold", "group_device", "group_split")
@@ -2650,6 +2664,10 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
     want = chunk_digests(objects, k, m)
     digests = [hashlib.sha256(o).digest() for o in objects]
     walls["cpu_digests"] = time.perf_counter() - t0
+    # the EC pool's objects as the class step leaves them (it rewrites the
+    # first OSD_CLS_REWRITES): what every later EC check holds reads and
+    # rebuilt shards against
+    ec_digests, ec_want = list(digests), list(want)
 
     def ctx_of(name):
         ctx = Context(name)
@@ -2669,7 +2687,7 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
             await asyncio.sleep(0.1 if proc else 0.02)
 
     live = {}              # osd id -> OSD
-    state = {"epoch_lost": 0, "backfill_lost": 0}
+    state = {"epoch_lost": 0, "backfill_lost": 0, "cls_objecter": 0}
     queue_launches = {}    # (osd, queue index) -> launches so far
     #: (osd, lane) -> that worker's last ``lane_state``; a stopped OSD's
     #: workers keep their last one
@@ -2707,7 +2725,11 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
                    for r in lane_state.values())
 
     def d1_sites():
-        sites = {"objecter": state["admin"].objecter.crush_batches,
+        objecter = state["admin"].objecter.crush_batches
+        in_cls = state["cls_objecter"]
+        if "cls_from" in state:       # the class step is running
+            in_cls += objecter - state["cls_from"]
+        sites = {"objecter": objecter - in_cls, "cls objecter": in_cls,
                  "epoch": state["epoch_lost"] + sum(
                      o.crush_batches["epoch"] for o in live.values()),
                  "backfill": state["backfill_lost"] + sum(
@@ -2819,6 +2841,7 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
             t = time.perf_counter()
             res = await asyncio.gather(*[one(c) for c in coros])
             walls[label] = time.perf_counter() - t
+        lats[label] = lat
         await poll_lanes()
         k1_1, d1_1 = k1_counts(), d1_sites()
         fill_1 = queue_perf("batch_fill")
@@ -2853,8 +2876,8 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
             check(s["lane_k1"] == s["k1"],
                   f"{label}: the workers' gf_apply launches "
                   f"{s['lane_k1']}, their queues' {s['k1']}")
-            check(w_d1 == s["d1"]["objecter"] + s["d1"]["parent epoch"]
-                  == len(d1_ev),
+            check(w_d1 == s["d1"]["objecter"] + s["d1"]["cls objecter"]
+                  + s["d1"]["parent epoch"] == len(d1_ev),
                   f"{label}: crush_map launches in this process {w_d1}, "
                   f"by call site {s['d1']}, timed {len(d1_ev)}")
             check(s["lane_d1"] == s["d1"]["lane epoch"]
@@ -2950,10 +2973,191 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
               f"{state['used_mib']:.0f} MiB before the OSDs started: "
               f"{per:.1f} MiB per worker over {workers} workers; card {smi}")
 
-    async def read_all(io, label, what):
+    async def read_all(io, label, what, sources):
         got = await asyncio.gather(*[io.read(n) for n in names])
-        check([hashlib.sha256(g).digest() for g in got] == digests,
+        check([hashlib.sha256(g).digest() for g in got] == sources,
               f"{label}: {what} read back differs from its source")
+
+    async def cls_step(ec_io, rep_io):
+        """Class calls through the cluster, each vector sent as ``IoCtx``
+        sends ``exec``'s: a version-guarded rewrite of the first EC
+        objects with new contents (all in flight; K1 encodes each staged
+        write_full at its primary), the same guard again carrying the
+        first contents (each answers -ECANCELED, the new contents stay),
+        the versions read back; lock, refcount and an omap-staging rbd
+        method on EC; an RGW bucket index on the replicated pool, one
+        prepare + complete pair per object, all in flight, then listed in
+        pages, its header read and checked.  Fails on any other
+        answer."""
+        from ceph_tpu_torch.client import ObjectOperationError
+        from ceph_tpu_torch.osd.messages import OP_CALL, OP_WRITEFULL, OSDOp
+        n = min(OSD_CLS_REWRITES, n_obj)
+        rng = np.random.default_rng(SEED + 16)
+        new = [rng.integers(0, 256, size, dtype=np.uint8).tobytes()
+               for _ in range(n)]
+        guard = json.dumps({"conds": [{"cond": "eq", "ver": 0}]}).encode()
+
+        async def guarded(name, data):
+            """The reply's result (an error raised carries it)."""
+            try:
+                reply = await ec_io._op(name, [
+                    OSDOp(OP_CALL, name="version.inc", data=guard),
+                    OSDOp(OP_WRITEFULL, length=len(data), data=data)])
+            except ObjectOperationError as e:
+                return e.retcode
+            return reply.result
+
+        async def call(io, oid, method, req=None):
+            """(result, outdata) of one class call."""
+            inbl = b"" if req is None else json.dumps(req).encode()
+            try:
+                return 0, await io.exec(oid, *method.split("."), inbl)
+            except ObjectOperationError as e:
+                return e.retcode, b""
+
+        state["cls_from"] = state["admin"].objecter.crush_batches
+        t = time.perf_counter()
+        got = await step("cls write", [guarded(names[j], new[j])
+                                       for j in range(n)])
+        check(got == [0] * n, f"cls write: the guarded rewrites answered "
+                              f"{got}")
+        t_cpu = time.perf_counter()
+        ec_want[:n] = chunk_digests(new, k, m)
+        ec_digests[:n] = [hashlib.sha256(o).digest() for o in new]
+        walls["cls cpu_digests"] = time.perf_counter() - t_cpu
+        got = await step("cls replay", [guarded(names[j], objects[j])
+                                        for j in range(n)])
+        check(got == [-errno.ECANCELED] * n,
+              f"cls replay: the guard sent again answered {got}")
+        got = await asyncio.gather(*[ec_io.read(names[j]) for j in range(n)])
+        check([hashlib.sha256(g).digest() for g in got] == ec_digests[:n],
+              "cls: a guarded object read back differs from its new "
+              "contents")
+        vers = await asyncio.gather(*[call(ec_io, names[j], "version.read")
+                                      for j in range(n)])
+        vers = [json.loads(v) for _, v in vers]
+        check(all(v["ver"] == 1 and len(v["tag"]) == 16
+                  and int(v["tag"], 16) >= 0 for v in vers),
+              f"cls: version.read gave {vers[:2]}")
+
+        # lock, refcount and an omap-staging method on an EC object
+        oid = names[n % n_obj]
+
+        xattr_lat = []
+
+        async def xattr_calls():
+            """In order, each call's latency kept apart."""
+            req = {"name": "smoke", "type": "exclusive", "entity": "a",
+                   "cookie": "c"}
+            got = []
+            for o, method, r in (
+                    (oid, "lock.lock", req),
+                    (oid, "lock.lock", dict(req, entity="b")),
+                    (oid, "lock.get_info", {"name": "smoke"}),
+                    (oid, "refcount.get", {"tag": "a"}),
+                    (oid, "refcount.get", {"tag": "b"}),
+                    (oid, "refcount.put", {"tag": "a"}),
+                    (oid, "refcount.read", None),
+                    ("rbd_directory", "rbd.dir_add", {"name": "img"})):
+                t_call = time.perf_counter()
+                got.append(await call(ec_io, o, method, r))
+                xattr_lat.append(time.perf_counter() - t_call)
+            return got
+
+        (got,) = await step("cls xattr", [xattr_calls()])
+        lats["cls xattr"] = xattr_lat
+        out["cls xattr"].update(p50_ms=_pct(xattr_lat, 50) * 1e3,
+                                p99_ms=_pct(xattr_lat, 99) * 1e3)
+        rcs = [r for r, _ in got]
+        check(rcs == [0, -errno.EBUSY, 0, 0, 0, 0, 0, -errno.EOPNOTSUPP],
+              f"cls xattr: lock, refcount and rbd.dir_add answered {rcs}")
+        check(list(json.loads(got[2][1])["lockers"]) == ["a/c"],
+              f"cls xattr: lock.get_info gave {got[2][1]}")
+        check(json.loads(got[5][1]) == {"deleted": False}
+              and json.loads(got[6][1]) == ["#implicit", "b"],
+              f"cls xattr: refcount left {got[6][1]}")
+
+        # the bucket index: one entry per replicated object
+        index = ".dir.chip-smoke"
+        rc, _ = await call(rep_io, index, "rgw.bucket_init")
+        check(rc == 0, f"cls index: bucket_init answered {rc}")
+
+        async def pair(j):
+            rc1, _ = await call(rep_io, index, "rgw.bucket_prepare_op",
+                                {"tag": f"t{j}", "op": "put",
+                                 "key": names[j], "ts": float(j)})
+            rc2, out2 = await call(rep_io, index, "rgw.bucket_complete_op",
+                                   {"tag": f"t{j}", "op": "put",
+                                    "key": names[j],
+                                    "entry": {"size": size, "mtime": 0.0,
+                                              "etag": digests[j].hex()}})
+            return rc1, rc2, out2
+
+        got = await step("cls index", [pair(j) for j in range(n_obj)])
+        check(all(g == (0, 0, b'{"removed": true}') for g in got),
+              f"cls index: prepare/complete answered {set(got)}")
+        listed, marker, pages = [], "", 0
+        while True:
+            rc, out_l = await call(rep_io, index, "rgw.bucket_list",
+                                   {"marker": marker,
+                                    "max_keys": OSD_CLS_PAGE})
+            check(rc == 0, f"cls index: bucket_list answered {rc}")
+            page = json.loads(out_l)
+            pages += 1
+            listed += [e["key"] for e in page["entries"]]
+            marker = page["marker"]
+            if not page["truncated"]:
+                break
+        check(listed == sorted(names), f"cls index: bucket_list gave "
+                                       f"{len(listed)} keys in {pages} pages")
+        _, hdr = await call(rep_io, index, "rgw.bucket_read_header")
+        hdr = json.loads(hdr)
+        check(hdr == {"entries": n_obj, "bytes": n_obj * size},
+              f"cls index: the header is {hdr}")
+        _, chk = await call(rep_io, index, "rgw.bucket_check")
+        chk = json.loads(chk)
+        check(chk["actual"] == chk["header"] == hdr and not chk["pending"],
+              f"cls index: bucket_check found {chk}")
+        wall = time.perf_counter() - t
+        objecter = state["admin"].objecter.crush_batches
+        state["cls_objecter"] += objecter - state.pop("cls_from")
+        labels = ("cls write", "cls replay", "cls xattr", "cls index")
+        lat = [x for label in labels for x in lats[label]]
+        s = out["cls"] = {
+            "wall_s": wall, "p50_ms": _pct(lat, 50) * 1e3,
+            "p99_ms": _pct(lat, 99) * 1e3, "ops": len(lat),
+            "k1": out["cls write"]["k1"],
+            "d1_objecter": state["cls_objecter"],
+            "rewrites": n, "index_entries": n_obj, "pages": pages}
+        report("cls write", n * size,
+               f"; {n} EC objects rewritten under version.inc {{ver eq 0}}, "
+               f"each read back equal to its new contents at ver 1")
+        for label, what in (
+                ("cls replay", f"{n} vectors, the guard sent again with "
+                               f"the first contents: each -ECANCELED, the "
+                               f"new contents stay"),
+                ("cls xattr", f"lock.lock a (b: -EBUSY, get_info a/c), "
+                              f"refcount.get a, b, put a (left "
+                              f"#implicit, b) on {oid}; rbd.dir_add on EC "
+                              f"-EOPNOTSUPP"),
+                ("cls index", f"{n_obj} bucket_prepare_op + "
+                              f"bucket_complete_op pairs on one index "
+                              f"object; listed in {pages} pages of "
+                              f"{OSD_CLS_PAGE}, header {hdr}, bucket_check "
+                              f"clean")):
+            x = out[label]
+            print(f"phase {tag} {label}: {x['wall_s']:.4f} s, op p50 "
+                  f"{x['p50_ms']:.2f} ms, p99 {x['p99_ms']:.2f} ms; "
+                  f"gf_apply {x['k1']} launches; crush_map by call site "
+                  f"{x['d1']}; {what} (host clock)")
+        print(f"phase {tag} cls: {wall:.4f} s in all; op p50 "
+              f"{s['p50_ms']:.2f} ms, p99 {s['p99_ms']:.2f} ms over "
+              f"{len(lat)} ops ({n} guarded rewrites, {n} replays, "
+              f"{len(xattr_lat)} xattr-class calls, {n_obj} index updates "
+              f"of a prepare + complete pair each); "
+              f"gf_apply {s['k1']} launches at the guarded rewrite; "
+              f"crush_map {s['d1_objecter']} launches at the Objecter "
+              f"(host clock); card {smi}")
 
     async def run():
         try:
@@ -3067,7 +3271,11 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
                    else "; three equal replicas of each")
             report("rep read", total)
 
-            # 5. stop the two OSDs holding the most EC shards; mark them
+            # 5. object classes: the guarded EC rewrite, xattr classes on
+            # EC, an RGW bucket index on the replicated pool
+            await cls_step(ec_io, rep_io)
+
+            # 6. stop the two OSDs holding the most EC shards; mark them
             # down: reads of objects that lost a data shard decode
             held = {}
             for _, acting in ec_place:
@@ -3097,7 +3305,7 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
             got = await step("degraded read",
                              [ec_io.read(names[j]) for j in hit])
             check([hashlib.sha256(g).digest() for g in got]
-                  == [digests[j] for j in hit],
+                  == [ec_digests[j] for j in hit],
                   "a degraded read differs from its source")
             report("degraded read", len(hit) * size,
                    f"; osd.{lost[0]} and osd.{lost[1]} ({held[lost[0]]} and "
@@ -3106,7 +3314,7 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
                    f"{len(hit)} objects that lost a data shard read back "
                    f"equal")
 
-            # 6. out: backfill rebuilds the lost shards elsewhere
+            # 7. out: backfill rebuilds the lost shards elsewhere
             async def recover():
                 await asyncio.gather(*[admin.mon_command(
                     {"prefix": "osd out", "id": o}) for o in lost])
@@ -3129,7 +3337,7 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
                               f"{names[j]} shard {i} still on a lost OSD")
                         if not proc:
                             bad += stored(acting[i], ec_pool, pg, i,
-                                          names[j]) != want[j][i]
+                                          names[j]) != ec_want[j][i]
             check(moved > 0, "no shard moved after two OSDs went out")
             check(bad == 0, f"{bad} rebuilt shards differ from the CPU "
                             f"codec's chunks")
@@ -3137,9 +3345,10 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
                 # every object read back after recovery, from the
                 # rebuilt shards' new homes among the rest
                 t = time.perf_counter()
-                await read_all(ec_io, "after recovery", "an EC object")
+                await read_all(ec_io, "after recovery", "an EC object",
+                               ec_digests)
                 await read_all(rep_io, "after recovery",
-                               "a replicated object")
+                               "a replicated object", digests)
                 walls["read after recovery"] = time.perf_counter() - t
                 if on_card:
                     lane_memory("after recovery")
@@ -3194,7 +3403,8 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
         out["k1_wrapper"] += out["lane_wrappers"]["gf_apply"]
     k1 = {"encode": out["ec write"]["k1"],
           "degraded read": out["degraded read"]["k1"],
-          "rebuild": out["recovery"]["k1"]}
+          "rebuild": out["recovery"]["k1"],
+          "cls write": out["cls write"]["k1"]}
     out["k1_launches"] = k1
     if on_card:
         check(out["d1_wrapper"] == sum(d1.values()),
@@ -3594,12 +3804,16 @@ def main() -> int:
                                      "store": store, "mon": mon,
                                      "osd": {key: osd[key] for key in (
                                          "boot", "ec write", "ec read",
-                                         "rep write", "rep read",
+                                         "rep write", "rep read", "cls",
+                                         "cls write", "cls replay",
+                                         "cls xattr", "cls index",
                                          "degraded read", "recovery",
                                          "phase_s", "lost")},
                                      "osd lanes": {key: lanes[key] for key in (
                                          "boot", "ec write", "ec read",
-                                         "rep write", "rep read",
+                                         "rep write", "rep read", "cls",
+                                         "cls write", "cls replay",
+                                         "cls xattr", "cls index",
                                          "degraded read", "recovery",
                                          "phase_s", "lost", "workers",
                                          "worker_mib", "walls")}}}))

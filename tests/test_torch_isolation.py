@@ -39,6 +39,12 @@ SLICE8 = ("mon/monmap.py", "mon/messages.py", "osd/shards.py",
           "mon/osd_monitor.py", "mon/auth_monitor.py", "mon/pg_monitor.py",
           "mon/fs_monitor.py", "mon/client.py", "mon/__init__.py")
 
+#: the object classes
+SLICE12 = tuple(f"cls/{m}.py" for m in (
+    "__init__", "lock", "version", "refcount", "rbd", "journal", "numops",
+    "rgw", "log", "timeindex", "user", "statelog", "replica_log",
+    "inotable"))
+
 
 def _sources():
     out = [os.path.join(ROOT, "chip_smoke.py"),
@@ -72,7 +78,7 @@ def test_sources_exist():
                 "common/encoding.py", "native/__init__.py", "ec/lrc.py",
                 "ec/shec.py", "crush/compiler.py", "tools/crushtool.py",
                 "tools/psim.py", "common/crc.py", "common/xxhash.py",
-                *SLICE6, *SLICE7, *SLICE8):
+                *SLICE6, *SLICE7, *SLICE8, *SLICE12):
         assert os.path.join(ROOT, "ceph_tpu_torch", mod) in srcs, mod
 
 
@@ -167,6 +173,28 @@ def test_slice8_modules_mirror_the_reference_and_import_alone():
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_slice12_modules_mirror_the_reference_and_import_alone():
+    """The port's cls/ holds every module of the reference's, at the same
+    paths; importing it registers every class and loads neither JAX, the
+    JAX package, nor the OSD's messages, which the staging calls import
+    only when a method writes."""
+    ref = sorted(f for f in os.listdir(os.path.join(ROOT, "ceph_tpu", "cls"))
+                 if f.endswith(".py"))
+    assert sorted(m.split("/")[1] for m in SLICE12) == ref
+    code = ("import sys\n"
+            "import ceph_tpu_torch.cls as cls\n"
+            "assert len(cls._METHODS) == 65, len(cls._METHODS)\n"
+            "assert 'ceph_tpu_torch.osd.messages' not in sys.modules\n"
+            "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+            "('jax', 'jaxlib', 'ceph_tpu'))\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=60)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 

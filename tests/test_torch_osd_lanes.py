@@ -253,8 +253,9 @@ LANES_SMALL = {"osds": 8, "k": 2, "m": 2, "ec_pgs": 8, "rep_pgs": 16,
 
 def test_chip_smoke_process_lane_run_on_the_cpu(tmp_path, capsys):
     """The process-lane run at 8 OSDs: every read, degraded read and read
-    after recovery equals its source, D1 is counted by process, K1 by the
-    workers' queues, every worker on the parent's device."""
+    after recovery equals its source (the EC objects' the class step
+    rewrote), D1 is counted by process, K1 by the workers' queues, every
+    worker on the parent's device."""
     import torch
 
     from ceph_tpu_torch.ec import kernel
@@ -277,7 +278,13 @@ def test_chip_smoke_process_lane_run_on_the_cpu(tmp_path, capsys):
     assert out["workers"] == 2 * LANES_SMALL["osds"]
     assert out["lane_devices"] == ["cpu"]
     assert out["recovery"]["moved_shards"] > 0
+    # the class step: a guarded rewrite of every EC object, encoded in the
+    # workers' queues, and a bucket index of every replicated object
+    assert out["cls"]["rewrites"] == out["cls"]["index_entries"] == 6
+    assert out["k1_launches"]["cls write"] == out["cls"]["k1"] > 0
+    assert out["cls write"]["parent_k1"] == 0
     text = capsys.readouterr().out
     for step in ("boot", "ec write", "ec read", "rep write", "rep read",
+                 "cls write", "cls replay", "cls xattr", "cls index", "cls",
                  "degraded read", "recovery"):
         assert f"phase osd-lanes {step}:" in text, step

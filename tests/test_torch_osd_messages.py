@@ -9,9 +9,9 @@
 - the device seam: the CRUSH engine follows the OSD's and the client's
   device (the device descent on a card, the host engine on the CPU); the
   default device raises without a card; mesh mode is refused at
-  ``start()``; a class call gets an error reply naming
-  ``ceph_tpu_torch.cls``; the EC batch queues' launch counts add up under
-  two shard threads;
+  ``start()``; a class call (a read-class and a write-class method, an
+  unknown one) gets the reply a reference OSD gives; the EC batch queues'
+  launch counts add up under two shard threads;
 - the port's repairs of the reference under thread lanes: BlockStore
   entries serialized, one map fetch per missing epoch shared by every
   PG, each epoch's map a copy of its own (kept, primed, for the
@@ -197,35 +197,48 @@ def _cluster_ctx(shards, lanes="thread", mode="force"):
 
 
 def test_a_class_call_gets_an_error_reply(monkeypatch):
-    """OP_CALL reaches a port OSD (from a client that knows the method's
-    class: here OSDOp.is_write is told it reads) and comes back with
-    -EOPNOTSUPP and the module's name, instead of killing the op."""
-    from ceph_tpu_torch.osd.messages import OP_CALL, OSDOp
-    from ceph_tpu_torch.osd.types import ObjectLocator
-    from ceph_tpu_torch.qa.cluster import Cluster
-    real = OSDOp.is_write
-    monkeypatch.setattr(OSDOp, "is_write",
-                        lambda o: False if o.op == OP_CALL else real(o))
+    """OP_CALL reaches a port OSD and comes back as from a reference OSD:
+    a read-class call, a write-class call and an unknown method (the one
+    that gets an error reply, -EOPNOTSUPP) answer with the same result,
+    rvals and outdata in both packages, and the object reads back the
+    same."""
+    def run(root):
+        m = importlib.import_module
+        msgs = m(root + ".osd.messages")
+        ObjectLocator = m(root + ".osd.types").ObjectLocator
+        lock = b'{"name": "l", "type": "exclusive", "entity": "a"}'
+        vectors = ([msgs.OSDOp(msgs.OP_CALL, name="lock.get_info",
+                               data=b'{"name": "l"}')],
+                   [msgs.OSDOp(msgs.OP_CALL, name="lock.lock", data=lock)],
+                   [msgs.OSDOp(msgs.OP_CALL, name="lock.lock", data=lock)],
+                   [msgs.OSDOp(msgs.OP_CALL, name="nope.method")])
 
-    async def run():
-        cl = Cluster(device="cpu")
-        admin = await cl.start(3)
-        await admin.pool_create("p", pg_num=4)
-        io = admin.open_ioctx("p")
-        await io.write_full("o", b"data")
-        reply = await admin.objecter.op_submit(
-            "o", ObjectLocator(io.pool_id),
-            [OSDOp(OP_CALL, name="lock.get_info")])
-        after = await io.read("o")
-        await cl.stop()
-        return reply, after
+        async def go():
+            kw = {"device": "cpu"} if root == "ceph_tpu_torch" else {}
+            cl = m(root + ".qa.cluster").Cluster(**kw)
+            admin = await cl.start(3)
+            await admin.pool_create("p", pg_num=4)
+            io = admin.open_ioctx("p")
+            await io.write_full("o", b"data")
+            seen = []
+            for ops in vectors:
+                reply = await admin.objecter.op_submit(
+                    "o", ObjectLocator(io.pool_id), ops)
+                seen.append((reply.result, [(o.rval, o.outdata)
+                                            for o in reply.ops]))
+            seen.append(await io.read("o"))
+            await cl.stop()
+            return seen
 
-    reply, after = asyncio.run(run())
-    assert reply.result == -errno.EOPNOTSUPP
-    assert reply.ops[0].rval == -errno.EOPNOTSUPP
-    assert b"ceph_tpu_torch.cls" in reply.ops[0].outdata
-    assert after == b"data"
-    assert importlib.util.find_spec("ceph_tpu_torch.cls") is None
+        return asyncio.run(go())
+
+    with pytest.MonkeyPatch.context() as mp:
+        install_ref_backoff(mp)
+        want = run("ceph_tpu")
+    got = run("ceph_tpu_torch")
+    assert got == want
+    assert [r[0] for r in got[:4]] == [0, 0, -errno.EEXIST, -errno.EOPNOTSUPP]
+    assert got[4] == b"data"
 
 
 def test_launch_counts_add_up_under_two_shard_threads(monkeypatch):
