@@ -15,8 +15,12 @@ whole shard streams at once instead of looping stripes.  Omap is
 rejected on EC pools like the reference; xattrs replicate to all shards.
 
 The port's copy of ``ceph_tpu.osd.backend``.  Device work goes only
-through the OSD's EC batch queue (so the matrix-apply kernel on a card);
-the codec's own backend stays "host".
+through the OSD's EC batch queue or, in mesh mode, the mesh executor
+(``parallel/mesh_exec``), so the matrix-apply kernel on a card; the
+codec's own backend stays "host".  A failed mesh program falls back to
+the batch queue only when the mesh's positions are all on the CPU: off
+it the error goes to the caller, where the JAX package's always falls
+back.
 """
 
 from __future__ import annotations
@@ -860,6 +864,10 @@ class ECBackend(PGBackend):
             try:
                 return await ex.encode_object(self.codec, data)
             except Exception as e:
+                if not ex.host_fallback:
+                    # off the CPU no other path may hide a failed launch
+                    self.log_.error(f"mesh encode failed: {e}")
+                    raise
                 self.log_.warning(f"mesh encode failed ({e}); "
                                   f"falling back to batch queue")
         # per-loop collector: under threaded shards the daemon-wide
@@ -917,6 +925,9 @@ class ECBackend(PGBackend):
                 self._note_decode(t0)
                 return out
             except Exception as e:
+                if not ex.host_fallback:
+                    self.log_.error(f"mesh decode failed: {e}")
+                    raise
                 self.log_.warning(f"mesh decode failed ({e}); "
                                   f"falling back to batch queue")
         q = self.osd.ec_batch_queue() \

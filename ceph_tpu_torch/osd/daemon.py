@@ -21,9 +21,7 @@ decode and prime each epoch's map anew.  An up_thru request asks for the
 waiting PG's interval start, where the JAX package's asks for its current
 epoch.  Scheduled scrubs take clean PGs only, where the JAX package's
 scrub every active PG, recovering ones too.
-It refuses at ``start()`` what the port does not carry yet: mesh mode
-(``osd_mesh_mode=on``).  With process lanes each lane worker builds its
-OSD on this one's device.
+With process lanes each lane worker builds its OSD on this one's device.
 """
 
 from __future__ import annotations
@@ -33,7 +31,7 @@ import concurrent.futures
 import errno
 import threading
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 from ceph_tpu_torch.common.device import (DEFAULT_DEVICE, DeviceLike,
                                           placement_engine, resolve_device)
@@ -58,6 +56,10 @@ from ceph_tpu_torch.osd.types import NO_SHARD, PGId
 from ceph_tpu_torch.crush.constants import CRUSH_ITEM_NONE
 from ceph_tpu_torch.store.objectstore import ObjectStore, Transaction
 
+
+#: how many (pool, epoch) entries of interval walk rows an OSD keeps
+#: (``OSD.interval_row``; twice this before it drops the older half)
+INTERVAL_ROW_EPOCHS = 512
 
 #: message classes whose handling touches PG state — classified to the
 #: PG's home shard by the sharded data plane (ms_fast_dispatch ->
@@ -139,6 +141,9 @@ class OSD(Dispatcher):
         self._hb_task: Optional[asyncio.Task] = None
         self._boot_task: Optional[asyncio.Task] = None
         self._waiting_maps: List[Message] = []
+        # (pool, epoch) -> (pool, up_thru by OSD, {pg: (up, acting,
+        # primary)}) for interval walks (interval_row)
+        self._interval_rows: Dict[Tuple[int, int], tuple] = {}
         # appends land from shard pumps (threaded mode) while the
         # intake loop swaps the list per map epoch: lock the pair
         # so a racing append can never strand a message on the
@@ -211,8 +216,7 @@ class OSD(Dispatcher):
                 self.cfg["osd_flight_recorder_size"]))
         self.admin_socket = None
         self._stats_task: Optional[asyncio.Task] = None
-        # the mesh executor; stays None until mesh mode is ported
-        self.mesh_exec = None
+        self.mesh_exec = None    # set when osd_mesh_mode=on (start())
         # sharded data plane (osd/shards.py): PGs hash to shards, all
         # PG-touching work routes through it.  num_shards=1 keeps the
         # plane disabled — every route() is an inline call, today's
@@ -324,10 +328,6 @@ class OSD(Dispatcher):
 
     # ------------------------------------------------------------ lifecycle
     async def start(self) -> None:
-        if self.cfg["osd_mesh_mode"] == "on":
-            raise RuntimeError(
-                "osd_mesh_mode=on: mesh mode (parallel/mesh_exec) is not "
-                "ported to ceph_tpu_torch yet (ROADMAP A8)")
         # sharded-plane commit semantics: barrier-less (RAM) stores
         # ack-on-apply — the commit thread's GIL handoff is the
         # tracer's repl_commit cost, and there is no durability point
@@ -349,6 +349,13 @@ class OSD(Dispatcher):
         self.shards.start()
         if self.shards.enabled:
             self.messenger.shard_router = _ShardIntake(self)
+        if self.cfg["osd_mesh_mode"] == "on":
+            # device-mesh execution mode: co-located shard OSDs share
+            # one mesh; EC bulk bytes move by sharded device program +
+            # in-process delivery instead of messenger sends
+            from ceph_tpu_torch.parallel import mesh_exec
+            self.mesh_exec = mesh_exec.enable()
+            self.mesh_exec.register(self)
         await self._authenticate()
         self.monc.on_osdmap(self._on_osdmap)
         self.monc.sub_want("osdmap", 0)
@@ -498,6 +505,45 @@ class OSD(Dispatcher):
             return None
         self._memo_map(m)
         return m
+
+    def interval_row(self, pool_id: int, epoch: int, pgid: PGId,
+                     cur_map: OSDMap):
+        """``pgid``'s (up, acting, primary) in ``epoch``'s map, with that
+        map's pool min_size and up_thru by OSD, for an interval walk; None
+        when the map or the pool is not there.  A map never changes once
+        its epoch exists, so each (pool, epoch) is read once, all its PGs
+        at once, and kept for the newest ``INTERVAL_ROW_EPOCHS`` epochs:
+        under thrashing every new PG instance and every peering retry
+        walks back hundreds of epochs, past the maps ``get_map`` keeps,
+        and the JAX package decodes and primes each of them again.  A PG
+        that epoch's pg_num does not reach (made by a later split) folds
+        to its parent, as ``pg_to_up_acting_osds`` folds it."""
+        key = (pool_id, epoch)
+        ent = self._interval_rows.get(key)
+        if ent is None:
+            m = cur_map if epoch == cur_map.epoch else self.get_map(epoch)
+            if m is None or pool_id not in m.pools:
+                return None
+            rows = {}
+            for pg in m.pg_ids(pool_id):
+                up, _, acting, primary = m.pg_to_up_acting_osds(pg)
+                rows[pg] = (up, acting, primary)
+            ent = (m.pools[pool_id],
+                   [i.up_thru for i in m.osd_info], rows)
+            # gil-atomic:begin _interval_rows shared by the shard lanes: a
+            # racing fill of one key stores equal rows; each dict op is one
+            # GIL step
+            self._interval_rows[key] = ent
+            if len(self._interval_rows) > 2 * INTERVAL_ROW_EPOCHS:
+                for old in sorted(self._interval_rows,
+                                  key=lambda k: k[1])[:INTERVAL_ROW_EPOCHS]:
+                    self._interval_rows.pop(old, None)
+            # gil-atomic:end
+        pool, up_thru, rows = ent
+        row = rows.get(pool.raw_pg_to_pg(pgid))
+        if row is None:
+            return None
+        return row + (pool.min_size, up_thru)
 
     def _memo_map(self, m: OSDMap) -> None:
         """Keep ``m`` as its epoch's map for ``get_map``."""
@@ -1039,6 +1085,12 @@ class OSD(Dispatcher):
             if pg is None:
                 with self._wm_lock:
                     self._waiting_maps.append(m)
+                return
+            if getattr(m, "in_process", False) and pg.awaits_activation():
+                # handed over in process ahead of the activation the
+                # primary sent on the messenger: keep the messenger's
+                # order
+                pg.hold_until_active(m)
                 return
             # sharded plane: write sub-ops apply INLINE off the ring
             # when nothing is queued ahead — the queue+wakeup hop is

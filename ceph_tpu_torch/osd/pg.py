@@ -32,7 +32,23 @@ listing window through ``OSD.place_objects`` (the OSD's CRUSH engine and
 device).  A peer's info answers the peering round that asked for it: a
 notify from an earlier round is dropped, where the JAX package takes it
 (after an EC shard move it describes the peer's old shard, complete, and
-the new one is never filled).
+the new one is never filled).  A write sub-op handed over in process
+(mesh mode) to a replica its primary has not activated yet waits for the
+activation, where the JAX package applies it at once (the activation,
+sent earlier on the messenger, then replaces the log and the write's
+entry is lost).  On an EC pool peering takes as the authority no version
+that fewer than k complete copies reached (``_ec_rollback_cap``): such a
+write was never acked, and the primary rolls its lone entry back, where
+the JAX package keeps it authoritative with fewer shards than a decode
+needs.  It does so only with proof: k members of every interval that
+may have taken writes since that version answered for the shard they
+held there (``_rollback_proven``); else it peers from the longest log,
+as the JAX package does.  Interval walks read each epoch's
+mappings from the OSD (``OSD.interval_row``), so no walk decodes or
+primes a map twice.  Peering waits for every up member of its prior
+set, asking again each ``PEER_INFO_WAIT_S``, as Ceph's GetInfo waits,
+where the JAX package fails the round after 10 s (an ERROR record) and
+starts another.
 """
 
 from __future__ import annotations
@@ -54,6 +70,10 @@ from ceph_tpu_torch.store.objectstore import Transaction
 from ceph_tpu_torch.store.types import CollectionId, ObjectId
 
 STATE_RESET = "reset"
+
+#: seconds peering waits for a prior-set member's info before it asks an
+#: up member again (a down one is passed over)
+PEER_INFO_WAIT_S = 10.0
 
 
 def _check_unfrozen(txn: Transaction) -> None:
@@ -155,6 +175,9 @@ class PG:
         # request/reply matching for peering + recovery
         self._notify_waiters: Dict[int, asyncio.Future] = {}
         self._log_waiters: Dict[int, asyncio.Future] = {}
+        # write sub-ops handed over in process ahead of this replica's
+        # activation (hold_until_active)
+        self._held_sub_writes: List = []
         self._list_waiters: Dict[int, asyncio.Future] = {}
         self._pull_waiters: Dict[str, asyncio.Future] = {}
         self._push_acks: Dict[Tuple[int, str], asyncio.Future] = {}
@@ -432,6 +455,9 @@ class PG:
             self.interval_epoch = osdmap.epoch
             self.state = STATE_PEERING
             self._active_event.clear()
+            # sub-ops held for the closed interval's activation are that
+            # interval's: dropped, as a stale sub-op is on arrival
+            self._drop_held_sub_writes()
             # acks from the old acting set can never complete: fail
             # in-flight futures now so writes abort with EAGAIN instead
             # of riding out their timeout (ReplicatedPG::do_request
@@ -465,22 +491,22 @@ class PG:
         known_to = max((iv.last for iv in self.past_intervals), default=0)
         prev = None   # [up, acting, primary, first_epoch]
         for e in range(start, cur_map.epoch + 1):
-            m = cur_map if e == cur_map.epoch else self.osd.get_map(e)
-            if m is None or self.pool_id not in m.pools:
+            row = self.osd.interval_row(self.pool_id, e,
+                                        self.pgid.without_shard(), cur_map)
+            if row is None:
                 continue
-            up, _, acting, actp = m.pg_to_up_acting_osds(
-                self.pgid.without_shard())
+            up, acting, actp, min_size, up_thru = row
             if prev is None:
                 prev = [up, acting, actp, e]
                 continue
             if (up, acting, actp) != (prev[0], prev[1], prev[2]):
                 if e - 1 > known_to:
-                    pool = m.pools[self.pool_id]
                     went_rw = (prev[2] >= 0
-                               and m.get_up_thru(prev[2]) >= prev[3]
+                               and 0 <= prev[2] < len(up_thru)
+                               and up_thru[prev[2]] >= prev[3]
                                and len([o for o in prev[1] if o >= 0
                                         and o != CRUSH_ITEM_NONE])
-                               >= pool.min_size)
+                               >= min_size)
                     self.past_intervals.append(PastInterval(
                         prev[3], e - 1, list(prev[0]), list(prev[1]),
                         prev[2], went_rw))
@@ -652,20 +678,29 @@ class PG:
                     self.osd.whoami))
             for p, fut in futs.items():
                 try:
-                    infos[p] = await asyncio.wait_for(fut, 10.0)
-                except asyncio.TimeoutError:
-                    if self.osd.osdmap.is_up(p):
+                    while True:
+                        try:
+                            infos[p] = await asyncio.wait_for(
+                                asyncio.shield(fut), PEER_INFO_WAIT_S)
+                            break
+                        except asyncio.TimeoutError:
+                            if not self.osd.osdmap.is_up(p):
+                                raise
                         # an UP prior-set member we couldn't hear from
                         # may hold the newest writes: proceeding without
                         # it could elect a stale authority and resync
-                        # its data away (GetInfo waits for all in the
-                        # reference; a truly dead peer gets marked down
-                        # by heartbeats, changing the interval).  Found
-                        # by qa/rados_model under load
-                        self._notify_waiters.pop(p, None)
-                        raise RuntimeError(
-                            f"{self.pgid}: no info from UP osd.{p}; "
-                            f"retrying peering")
+                        # its data away.  Wait on, as GetInfo does (a
+                        # truly dead peer gets marked down by
+                        # heartbeats, changing the interval), and ask
+                        # again in case the query or its answer was
+                        # lost; the round stays this one
+                        self.log_.warning(
+                            f"{self.pgid}: no info from UP osd.{p} in "
+                            f"{PEER_INFO_WAIT_S:g} s; asking again")
+                        self.osd.send_osd(p, MPGQuery(
+                            self.pgid.with_shard(probe[p]), epoch,
+                            self.osd.whoami))
+                except asyncio.TimeoutError:
                     self.log_.warning(
                         f"{self.pgid}: no info from down osd.{p}")
                 finally:
@@ -705,9 +740,12 @@ class PG:
         def rank(pi: PGInfo):
             return (pi.backfill_complete, pi.last_update,
                     pi.last_epoch_started)
-        best_osd, best_info = self.osd.whoami, self.info
-        for p, pi in infos.items():
-            if rank(pi) > rank(best_info):
+        cap = self._ec_rollback_cap(candidates)
+        best_osd, best_info = None, None
+        for p, pi in [(self.osd.whoami, self.info)] + list(infos.items()):
+            if cap is not None and pi.last_update > cap:
+                continue
+            if best_info is None or rank(pi) > rank(best_info):
                 best_osd, best_info = p, pi
         if best_osd != self.osd.whoami and (
                 best_info.last_update != self.info.last_update
@@ -746,6 +784,59 @@ class PG:
 
         # compute peer missing + activate peers
         await self._activate(epoch)
+
+    def _ec_rollback_cap(self, candidates: Dict[int, PGInfo]):
+        """The newest last_update an EC write can have reached and been
+        acked at: the k-th newest among the complete copies, when that is
+        proven.  An EC write acks once every shard of the acting set
+        committed, so a version fewer than k copies hold was never acked
+        if, in every interval that may have taken writes since the cap's
+        epoch, k members answered for the shard they held there with a
+        complete copy (``_rollback_proven``).  None when the
+        pool is replicated, nothing is past the cap, or the proof is
+        missing: peering then takes the longest log, as the JAX package
+        always does.  Copies past the cap are not taken as the authority:
+        the primary rewinds its own such entries and rebuilds the objects
+        from k peers at their version (Ceph's EC rollback of divergent
+        entries).  The JAX package keeps a write the primary applied
+        alone, its sub-ops dropped by replicas already in the next
+        interval, authoritative with one shard: its recovery and reads
+        fail for good."""
+        if not self.pool.is_erasure():
+            return None
+        k = self.backend.k
+        lus = sorted((pi.last_update for pi in candidates.values()
+                      if pi.backfill_complete), reverse=True)
+        if len(lus) < k or lus[0] <= lus[k - 1]:
+            return None
+        cap = lus[k - 1]
+        return cap if self._rollback_proven(cap, candidates) else None
+
+    def _rollback_proven(self, cap, candidates: Dict[int, PGInfo]) -> bool:
+        """Whether no version newer than ``cap`` can have been acked: in
+        every interval that may have taken writes since ``cap``'s epoch,
+        k members answered, each for the shard it held there with a
+        complete copy.  A write acked there sits on every shard of the
+        interval, so one held by fewer than k copies was not.  Members
+        that are down, or were asked for another shard, leave it
+        unproven (Ceph's EC prior set marks such a PG down unless k
+        shards of every may-have-written interval answer)."""
+        k = self.backend.k
+        asked = dict(self._probe_shards)
+        asked[self.osd.whoami] = self.pgid.shard
+        since = max(cap.epoch, self.info.last_epoch_started)
+        for iv in self.past_intervals:
+            if not iv.maybe_went_rw or iv.last < since:
+                continue
+            heard = 0
+            for pos, o in enumerate(iv.acting):
+                pi = candidates.get(o)
+                if (pi is not None and asked.get(o) == pos
+                        and pi.backfill_complete):
+                    heard += 1
+            if heard < k:
+                return False
+        return True
 
     async def _catch_up_from(self, peer: int, pinfo: PGInfo,
                              epoch: int) -> None:
@@ -1411,6 +1502,10 @@ class PG:
             self.osd.store.apply_transaction(txn)
             self.log_.debug(f"{self.pgid} activated by osd.{m.from_osd}"
                             + (" (full resync)" if m.full_resync else ""))
+            # what overtook the activation applies now, on top of it
+            held, self._held_sub_writes = self._held_sub_writes, []
+            for sub in held:
+                self.osd._dispatch_pg_msg(sub)
         else:
             fut = self._log_waiters.get(m.from_osd)
             if fut is not None and not fut.done():
@@ -1663,6 +1758,25 @@ class PG:
                 self.log_.exception(f"{self.pgid} op failed: {m}")
             finally:
                 self._worker_busy = False
+
+    def awaits_activation(self) -> bool:
+        """A replica its primary has not activated in this interval."""
+        return not self.is_primary() and self.state != STATE_ACTIVE
+
+    def hold_until_active(self, m) -> None:
+        """Keep a write sub-op that was handed over in process (mesh
+        mode) until the primary's activation arrives: on the messenger
+        it would have come after the activation the primary sent first,
+        and applied before it, its log entry is replaced by the
+        activation's log (the bytes stay, the entry is lost, and a
+        later primary never recovers the object)."""
+        self._held_sub_writes.append(m)
+
+    def _drop_held_sub_writes(self) -> None:
+        from ceph_tpu_torch.osd import extents
+        held, self._held_sub_writes = self._held_sub_writes, []
+        for m in held:
+            extents.release_message(m)
 
     def try_fast_sub_write(self, m) -> bool:
         """Sharded-plane inline path for replica WRITE sub-ops: apply

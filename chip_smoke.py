@@ -7,9 +7,11 @@ variant tuner, CRUSH placement up to the OSDMap and osdmaptool, the lrc
 and shec codecs, crushtool and psim on the card, the native host
 library on its host, the messenger carrying the card's chunks, the
 port's object stores holding them, a 3-mon quorum whose OSDMap feeds
-placement and rebuild, and a cluster of port OSDs that a port client
-writes, reads and recovers through, and fails (exit code 1, no result
-line) on any fault:
+placement and rebuild, a cluster of port OSDs that a port client
+writes, reads and recovers through (with object classes, striped files
+and a write-back cache, and again in mesh mode), the mesh steps alone
+and the model checker, and fails (exit code 1, no result line) on any
+fault:
 
   1. prints the card's name and power limit, builds the kernels
      (csrc/gf_apply.cu and csrc/crush_map.cu, one nvcc each, for sm_90a)
@@ -156,14 +158,41 @@ line) on any fault:
      degraded read, rebuild), each step's wrapper count equal to the
      call sites' and the queues'; fails on an ERROR logged by any daemon
      and on counts outside the stated ranges (host clock, launches,
-     wrapper spans);
- 17. times the probe, the descent and the winner grid beside their plain
+     wrapper spans); after the class step a client step: 4 files of 16
+     MiB striped through RadosStriper's default layout onto the
+     replicated pool, all in flight, stat, read whole, a window read and
+     overwritten, one truncated, one removed (every sub-object gone), the
+     rest removed after the checks; then
+     a write-back ObjectCacher (the reference's defaults) over 16 EC
+     objects takes 256 seeded 16 KiB writes and flushes them by
+     read-patch-rewrite (EC pools refuse partial writes; K1 encodes each
+     rewrite), every object read back equal to its patched contents, and
+     every later EC check holds them; the same on process lanes;
+ 17. mesh mode: the same 16 OSDs on thread lanes with osd_mesh_mode on
+     and the mesh executor over 12 positions on the card, the EC pool
+     alone: the 64 objects written (each primary's encode one mesh
+     program, one K1 launch with the rows of all 12 positions, the
+     sub-ops delivered in process), read, two OSDs stopped, degraded reads
+     and the rebuild decoding as mesh programs; every stored and rebuilt
+     shard equal to the CPU codec's, the batch queues launching nothing,
+     the executor's launches in stated ranges;
+ 18. D3 and D4 alone: parallel/layout's ec_cluster_step over 12
+     positions (3 x 4) at [12, 8, 512 Ki], ec_recover_step over 8 (1 x 8)
+     at [64, 8, 512 Ki] with 2 data chunks lost, and mesh_exec's
+     _mesh_encode_fn at n = 12, each bit for bit against the same step on
+     K1's plain version and timed with L2 flushed beside its bytes bound;
+ 19. one model-checker run, as tests/test_thrash.py runs its EC seed 101
+     (qa.rados_model.run_model, 5 OSDs, RS k=2 m=2, thrashed), which must
+     report ok; its K1 and D1 launches counted;
+ 20. times the probe, the descent and the winner grid beside their plain
      versions and bounds, and prints the ``kernels`` line (launches by
      path: the queue, lrc, shec, the messenger's and the store's encode,
      the store's rebuild, the mon phase's encode and rebuild, the osd
-     phase's encode, degraded read and rebuild; the CRUSH path, the
-     OSDMap, crushtool, psim, the store's placement, the mon phase's four
-     steps, the osd phase's three call sites).
+     phase's encode, degraded read, rebuild, class write and client
+     cache, the mesh run's encode and recover, the model run; the CRUSH
+     path, the OSDMap, crushtool, psim, the store's placement, the mon
+     phase's four steps, the osd phase's call sites, the mesh run's and
+     the model run's), with a row for each mesh step (D3, D4).
 
 The last line of its output is ``{"ok": true, "device": {...}}``.  It
 imports nothing of JAX and nothing of the JAX package.
@@ -2499,9 +2528,11 @@ OSD_WAIT_S = 180.0     # bound on each wait for boot, clean PGs, recovery
 #: stated before the phase first ran on the card: crush_map launches by
 #: call site and gf_apply launches by step, (least, most)
 OSD_D1_RANGES = {"objecter": (2, 12), "epoch": (150, 3000),
-                 "backfill": (0, 400), "cls objecter": (0, 4)}
+                 "backfill": (0, 400), "cls objecter": (0, 4),
+                 "client objecter": (0, 16)}
 OSD_K1_RANGES = {"encode": (8, 64), "degraded read": (1, 64),
-                 "rebuild": (1, 200), "cls write": (2, 32)}
+                 "rebuild": (1, 200), "cls write": (2, 32),
+                 "client cache": (1, 96)}
 #: the process-lane run: the same cluster with each OSD's two shards as
 #: worker processes (32 of them), each hosting its slice of the PGs in a
 #: MemStore of its own and launching K1 and D1 from a CUDA context of its
@@ -2512,9 +2543,10 @@ OSD_K1_RANGES = {"encode": (8, 64), "degraded read": (1, 64),
 #: launch K1 at the EC write
 OSD_LANE_D1_RANGES = {"objecter": (2, 12), "parent epoch": (150, 3000),
                       "lane epoch": (300, 6000), "backfill": (0, 400),
-                      "cls objecter": (0, 4)}
+                      "cls objecter": (0, 4), "client objecter": (0, 16)}
 OSD_LANE_K1_RANGES = {"encode": (8, 96), "degraded read": (8, 96),
-                      "rebuild": (1, 300), "cls write": (2, 32)}
+                      "rebuild": (1, 300), "cls write": (2, 32),
+                      "client cache": (1, 96)}
 OSD_LANE_K1_WORKERS = 12
 #: the process-lane run's cuts from the defaults beside OSD_CFG: rings and
 #: extent pools sized for 4 MiB objects (the default 4 MiB ring cannot
@@ -2522,13 +2554,16 @@ OSD_LANE_K1_WORKERS = 12
 #: inline frames)
 OSD_LANE_CUT = {"osd_lane_ring_bytes": "16m",
                 "osd_lane_extent_pool_bytes": "64m"}
-#: and half the PGs: 16 parents' loops share this process's interpreter
-#: and route every ring hop, and at each epoch each parent primes every PG
-#: of both pools, which it does not host (the JAX package's behaviour,
-#: kept), with 32 workers busy on the same 8 host cores; at 128 + 512 one
-#: of eight runs on the card stalled those loops past a peering query's
-#: 10 s and a worker logged "peering failed"
-OSD_LANE_EC_PGS, OSD_LANE_REP_PGS = 64, 256
+#: and a quarter of the PGs: 16 parents' loops share this process's
+#: interpreter and route every ring hop, and at each epoch each parent
+#: primes every PG of both pools, which it does not host (the JAX
+#: package's behaviour, kept), with 32 workers busy on the same 8 host
+#: cores; at 128 + 512 one of eight runs on the card stalled those loops
+#: past a peering query's 10 s and a worker logged "peering failed".  Cut
+#: from 64 + 256 to keep the whole script within 600 s once the mesh run,
+#: the model run and the client steps joined it (607 s at 64 + 256 on an
+#: NVIDIA H100 80GB HBM3 at 700 W)
+OSD_LANE_EC_PGS, OSD_LANE_REP_PGS = 32, 128
 #: the class step, run after the replicated read on both lane backends:
 #: the first OSD_CLS_REWRITES EC objects rewritten by ``[OP_CALL
 #: version.inc {ver eq 0}, OP_WRITEFULL]`` vectors, all in flight (the
@@ -2540,6 +2575,36 @@ OSD_LANE_EC_PGS, OSD_LANE_REP_PGS = 64, 256
 #: ran on the card
 OSD_CLS_REWRITES = 16
 OSD_CLS_PAGE = 16
+#: the client step, run after the class step on both lane backends: a
+#: striped file set on the replicated pool through RadosStriper's default
+#: layout (512 KiB stripe unit, 1 stripe, 4 MiB objects), all files in
+#: flight, then stat, whole and window reads, a window overwrite, one file
+#: truncated and one removed (the rest removed after the checks, so the
+#: recovery after the out moves what it moved before); and a write-back
+#: ObjectCacher (the
+#: reference's defaults) over the OSD_CACHE_OBJECTS EC objects after the
+#: class step's, taking OSD_CACHE_WRITES writes of OSD_CACHE_WRITE bytes
+#: at seeded offsets within each object's first OSD_CACHE_WINDOW bytes,
+#: then flushed: EC pools refuse partial writes, so its writer reads the
+#: whole object, patches it and rewrites it (as the RBD service does for
+#: EC images; K1 encodes each rewrite at its primary).  The step's entries
+#: in the ranges above ("client cache": K1 at the cache's writes and
+#: flush; "client objecter") were stated before it first ran on the card
+OSD_CLIENT_FILES, OSD_CLIENT_FILE_BYTES = 4, 16 << 20
+OSD_CACHE_OBJECTS, OSD_CACHE_WRITES = 16, 256
+OSD_CACHE_WRITE, OSD_CACHE_WINDOW = 16 << 10, 128 << 10
+#: the mesh-mode run (osd_mesh_mode=on): the same 16 OSDs on thread lanes
+#: (process lanes refuse mesh mode) with the mesh executor installed over
+#: MESH_POSITIONS positions on the card, the EC pool alone (mesh mode
+#: changes only the EC path).  Stated before it first ran on the card:
+#: crush_map launches by call site; the executor's launches (an object's
+#: encode is one launch of one K1 with the rows of all 12 positions;
+#: each recover launch one K1); the batch queues launch nothing
+MESH_POSITIONS = 12
+OSD_MESH_D1_RANGES = {"objecter": (1, 12), "epoch": (50, 3000),
+                      "backfill": (0, 400)}
+OSD_MESH_RANGES = {"encode launches": (64, 96), "encode k1": (64, 96),
+                   "recover launches": (1, 400), "recover k1": (1, 400)}
 
 
 def chunk_digests(objects, k, m):
@@ -2590,7 +2655,9 @@ def gpu_used_mib():
 
 def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
               ec_pgs=OSD_EC_PGS, rep_pgs=OSD_REP_PGS, queue_mode="auto",
-              lanes="thread"):
+              lanes="thread", mesh_positions=0,
+              client_files=OSD_CLIENT_FILES,
+              client_file_bytes=OSD_CLIENT_FILE_BYTES):
     """An RS k=8 m=4 pool on 16 port OSDs, written, read and recovered
     through the port's own daemons.
 
@@ -2618,7 +2685,17 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
     checks shards through reads (every object after the write, the
     degraded reads, every object again after recovery), counts D1 by
     process, fails if a parent launches K1 or a worker dies, and prints
-    each worker's device memory."""
+    each worker's device memory.
+
+    With ``mesh_positions`` the OSDs run in mesh mode (``osd_mesh_mode``
+    on, thread lanes) with the mesh executor installed over that many
+    positions on ``dev``, and only the EC pool is made (``rep_pgs`` 0):
+    the primaries' encodes, degraded reads and rebuilds run as mesh
+    programs (K1 launches in the executor's thread), the sub-ops reach
+    co-located OSDs in process, and the batch queues must launch
+    nothing.  Without it, both pools get a class step and a client step
+    (a striped file set on the replicated pool, a write-back cache over
+    EC objects) after the replicated read."""
     import hashlib
 
     import torch
@@ -2635,17 +2712,24 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
     from ceph_tpu_torch.store.blockstore import BlockStore
     from ceph_tpu_torch.store.kv import FileDB
     from ceph_tpu_torch.store.types import CollectionId, ObjectId
+    from ceph_tpu_torch.parallel import mesh_exec
     on_card = dev.type == "cuda"
     proc = lanes == "process"
-    tag = "osd-lanes" if proc else "osd"
-    d1_ranges = OSD_LANE_D1_RANGES if proc else OSD_D1_RANGES
-    k1_ranges = OSD_LANE_K1_RANGES if proc else OSD_K1_RANGES
+    mesh = mesh_positions > 0
+    check(not (mesh and (proc or rep_pgs)),
+          "mesh mode runs on thread lanes with the EC pool alone")
+    tag = "osd-mesh" if mesh else "osd-lanes" if proc else "osd"
+    d1_ranges = (OSD_MESH_D1_RANGES if mesh else OSD_LANE_D1_RANGES if proc
+                 else OSD_D1_RANGES)
+    k1_ranges = {} if mesh else OSD_LANE_K1_RANGES if proc else OSD_K1_RANGES
     n_obj, width = len(objects), k + m
     size = len(objects[0])
     total = n_obj * size
     names = [f"rbd_data.osd.{i:016x}" for i in range(n_obj)]
     cut = dict(OSD_CFG, osd_shard_lanes=lanes, **(OSD_LANE_CUT if proc
                                                    else {}))
+    if mesh:
+        cut["osd_mesh_mode"] = "on"
     cfg = dict(MON_CFG, **cut)
     if queue_mode != "auto":
         cfg["osd_ec_batch_device"] = queue_mode
@@ -2664,10 +2748,11 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
     want = chunk_digests(objects, k, m)
     digests = [hashlib.sha256(o).digest() for o in objects]
     walls["cpu_digests"] = time.perf_counter() - t0
-    # the EC pool's objects as the class step leaves them (it rewrites the
-    # first OSD_CLS_REWRITES): what every later EC check holds reads and
-    # rebuilt shards against
-    ec_digests, ec_want = list(digests), list(want)
+    # the EC pool's objects as the class and client steps leave them
+    # (the class step rewrites the first OSD_CLS_REWRITES, the client
+    # step's cache patches the next OSD_CACHE_OBJECTS): what every later
+    # EC check holds reads and rebuilt shards against
+    ec_objects, ec_digests, ec_want = list(objects), list(digests), list(want)
 
     def ctx_of(name):
         ctx = Context(name)
@@ -2687,7 +2772,10 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
             await asyncio.sleep(0.1 if proc else 0.02)
 
     live = {}              # osd id -> OSD
-    state = {"epoch_lost": 0, "backfill_lost": 0, "cls_objecter": 0}
+    state = {"epoch_lost": 0, "backfill_lost": 0,
+             # the Objecter's placements while a step of its own runs
+             "objecter_sites": {} if mesh else {"cls objecter": 0,
+                                                "client objecter": 0}}
     queue_launches = {}    # (osd, queue index) -> launches so far
     #: (osd, lane) -> that worker's last ``lane_state``; a stopped OSD's
     #: workers keep their last one
@@ -2726,10 +2814,11 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
 
     def d1_sites():
         objecter = state["admin"].objecter.crush_batches
-        in_cls = state["cls_objecter"]
-        if "cls_from" in state:       # the class step is running
-            in_cls += objecter - state["cls_from"]
-        sites = {"objecter": objecter - in_cls, "cls objecter": in_cls,
+        sub = dict(state["objecter_sites"])
+        if "site_from" in state:      # a step with a site of its own runs
+            site, since = state["site_from"]
+            sub[site] += objecter - since
+        sites = {"objecter": objecter - sum(sub.values()), **sub,
                  "epoch": state["epoch_lost"] + sum(
                      o.crush_batches["epoch"] for o in live.values()),
                  "backfill": state["backfill_lost"] + sum(
@@ -2740,6 +2829,26 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
             sites["backfill"] += lane_sum("crush_batches", "backfill")
             sites = {site: sites[site] for site in OSD_LANE_D1_RANGES}
         return sites
+
+    def enter_site(site):
+        state["site_from"] = (site, state["admin"].objecter.crush_batches)
+
+    def leave_site():
+        site, since = state.pop("site_from")
+        state["objecter_sites"][site] += (
+            state["admin"].objecter.crush_batches - since)
+
+    def mesh_counts():
+        ex = mesh_exec.current()
+        if not mesh or ex is None:
+            return {}
+        return {"encode launches": ex.encode_launches,
+                "encode k1": ex.k1_encode,
+                "recover launches": ex.recover_launches,
+                "recover k1": ex.k1_recover,
+                "in-process sub-ops": ex.inproc_subops,
+                "encode busy s": ex.busy_s["encode"],
+                "recover busy s": ex.busy_s["recover"]}
 
     def queue_perf(key):
         """(sum, count) of one of the OSDs' ec_batch_queue figures."""
@@ -2821,7 +2930,7 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
         (host clock), K1's launches by queue and D1's by call site over
         the step, and the wrapper spans (CUDA events)."""
         await poll_lanes()
-        k1_0, d1_0 = k1_counts(), d1_sites()
+        k1_0, d1_0, mesh_0 = k1_counts(), d1_sites(), mesh_counts()
         fill_0, walls_0 = queue_perf("batch_fill"), {
             key: queue_perf(key)[0] for key in group_steps}
         w_k1, w_d1 = kernel.gf_apply_launches, ck.crush_map_launches
@@ -2858,6 +2967,10 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
              / max(1, fill_1[1] - fill_0[1]),
              "groups_s": {key: queue_perf(key)[0] - walls_0[key]
                           for key in group_steps}}
+        if mesh:
+            s["mesh"] = {key: n - mesh_0[key]
+                         for key, n in mesh_counts().items()}
+            s["mesh_k1"] = s["mesh"]["encode k1"] + s["mesh"]["recover k1"]
         w_k1 = kernel.gf_apply_launches - w_k1
         w_d1 = ck.crush_map_launches - w_d1
         if proc:
@@ -2877,7 +2990,8 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
                   f"{label}: the workers' gf_apply launches "
                   f"{s['lane_k1']}, their queues' {s['k1']}")
             check(w_d1 == s["d1"]["objecter"] + s["d1"]["cls objecter"]
-                  + s["d1"]["parent epoch"] == len(d1_ev),
+                  + s["d1"]["client objecter"] + s["d1"]["parent epoch"]
+                  == len(d1_ev),
                   f"{label}: crush_map launches in this process {w_d1}, "
                   f"by call site {s['d1']}, timed {len(d1_ev)}")
             check(s["lane_d1"] == s["d1"]["lane epoch"]
@@ -2885,9 +2999,11 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
                   f"{label}: the workers' crush_map launches "
                   f"{s['lane_d1']}, by call site {s['d1']}")
         elif on_card:
-            check(w_k1 == s["k1"] == len(k1_ev),
+            mesh_k1 = s.get("mesh_k1", 0)
+            check(w_k1 == s["k1"] + mesh_k1 == len(k1_ev),
                   f"{label}: gf_apply launches {w_k1}, the queues' "
-                  f"{s['k1']}, timed {len(k1_ev)}")
+                  f"{s['k1']}, the mesh executor's {mesh_k1}, timed "
+                  f"{len(k1_ev)}")
             check(w_d1 == sum(s["d1"].values()) == len(d1_ev),
                   f"{label}: crush_map launches {w_d1}, by call site "
                   f"{s['d1']}, timed {len(d1_ev)}")
@@ -2899,6 +3015,8 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
         where = (f" from {s['k1_workers']} worker processes (the parents "
                  f"{s['parent_k1']}), spans not measured (in the workers)"
                  if proc else f", wrapper spans {s['k1_span_ms']:.4f} ms")
+        if mesh:
+            where += f"; the mesh executor {s['mesh']}"
         print(f"phase {tag} {label}: {s['wall_s']:.4f} s, "
               f"{n_bytes / s['wall_s'] / 1e6:.1f} MB/s of object data, op "
               f"p50 {s['p50_ms']:.2f} ms, p99 {s['p99_ms']:.2f} ms; "
@@ -3015,7 +3133,7 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
             except ObjectOperationError as e:
                 return e.retcode, b""
 
-        state["cls_from"] = state["admin"].objecter.crush_batches
+        enter_site("cls objecter")
         t = time.perf_counter()
         got = await step("cls write", [guarded(names[j], new[j])
                                        for j in range(n)])
@@ -3023,6 +3141,7 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
                               f"{got}")
         t_cpu = time.perf_counter()
         ec_want[:n] = chunk_digests(new, k, m)
+        ec_objects[:n] = new
         ec_digests[:n] = [hashlib.sha256(o).digest() for o in new]
         walls["cls cpu_digests"] = time.perf_counter() - t_cpu
         got = await step("cls replay", [guarded(names[j], objects[j])
@@ -3119,15 +3238,14 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
         check(chk["actual"] == chk["header"] == hdr and not chk["pending"],
               f"cls index: bucket_check found {chk}")
         wall = time.perf_counter() - t
-        objecter = state["admin"].objecter.crush_batches
-        state["cls_objecter"] += objecter - state.pop("cls_from")
+        leave_site()
         labels = ("cls write", "cls replay", "cls xattr", "cls index")
         lat = [x for label in labels for x in lats[label]]
         s = out["cls"] = {
             "wall_s": wall, "p50_ms": _pct(lat, 50) * 1e3,
             "p99_ms": _pct(lat, 99) * 1e3, "ops": len(lat),
             "k1": out["cls write"]["k1"],
-            "d1_objecter": state["cls_objecter"],
+            "d1_objecter": state["objecter_sites"]["cls objecter"],
             "rewrites": n, "index_entries": n_obj, "pages": pages}
         report("cls write", n * size,
                f"; {n} EC objects rewritten under version.inc {{ver eq 0}}, "
@@ -3159,11 +3277,191 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
               f"crush_map {s['d1_objecter']} launches at the Objecter "
               f"(host clock); card {smi}")
 
+    async def client_step(ec_io, rep_io):
+        """The rest of the client through the cluster: a striped file set
+        on the replicated pool (all files in flight; stat, whole and
+        window reads, a window overwrite, a truncate, a remove), then a
+        write-back cache over EC objects, flushed by read-patch-rewrite.
+        Fails on any content that differs from the one kept here."""
+        from ceph_tpu_torch.client import ObjectOperationError
+        from ceph_tpu_torch.client.object_cacher import ObjectCacher
+        from ceph_tpu_torch.client.rados_striper import (
+            DEFAULT_LAYOUT, RadosStriper, StripedObjectNotFound)
+        rng = np.random.default_rng(SEED + 32)
+        enter_site("client objecter")
+        t_all = time.perf_counter()
+        st = RadosStriper(rep_io)
+        files = {f"smoke-file.{i}": rng.integers(
+            0, 256, client_file_bytes, dtype=np.uint8).tobytes()
+            for i in range(client_files)}
+        await step("client files write", [st.write(name, data)
+                                          for name, data in files.items()])
+        stats = await asyncio.gather(*[st.stat(name) for name in files])
+        check(all(x == {"size": client_file_bytes,
+                        "stripe_unit": DEFAULT_LAYOUT.stripe_unit,
+                        "stripe_count": DEFAULT_LAYOUT.stripe_count,
+                        "object_size": DEFAULT_LAYOUT.object_size}
+                  for x in stats), f"client files: stat gave {stats[:1]}")
+        got = await step("client files read", [st.read(name)
+                                               for name in files])
+        check(got == list(files.values()),
+              "client files: a file read back differs from its source")
+        names_f = list(files)
+        edit_lat = []
+        win = min(1 << 20, client_file_bytes // 4)
+        off = client_file_bytes // 3 + 4097
+
+        async def edits():
+            """A window read, a window overwrite, a truncate and a
+            remove, in turn, each one's latency kept apart."""
+            f0, f1, f2 = names_f[0], names_f[1 % len(names_f)], \
+                names_f[-1]
+            t = time.perf_counter()
+            got = await st.read(f0, length=win, offset=off)
+            edit_lat.append(time.perf_counter() - t)
+            check(got == files[f0][off:off + win],
+                  "client files: a window read differs")
+            patch = rng.integers(0, 256, win, dtype=np.uint8).tobytes()
+            t = time.perf_counter()
+            await st.write(f0, patch, offset=off + 17)
+            edit_lat.append(time.perf_counter() - t)
+            files[f0] = (files[f0][:off + 17] + patch
+                         + files[f0][off + 17 + win:])
+            keep = client_file_bytes // 2 + 12345
+            t = time.perf_counter()
+            await st.truncate(f1, keep)
+            edit_lat.append(time.perf_counter() - t)
+            files[f1] = files[f1][:keep]
+            t = time.perf_counter()
+            await st.remove(f2)
+            edit_lat.append(time.perf_counter() - t)
+            del files[f2]
+
+        await step("client files edit", [edits()])
+        out["client files edit"].update(p50_ms=_pct(edit_lat, 50) * 1e3,
+                                        p99_ms=_pct(edit_lat, 99) * 1e3)
+        for name, data in files.items():
+            check((await st.stat(name))["size"] == len(data)
+                  and await st.read(name) == data,
+                  f"client files: {name} after the edits differs")
+        try:
+            await st.stat(names_f[-1])
+            check(False, "client files: a removed file still stats")
+        except StripedObjectNotFound:
+            pass
+        left = [o for o in await rep_io.list_objects()
+                if o.startswith(names_f[-1] + ".")]
+        check(not left, f"client files: the removed file left {left}")
+        # the rest go too: recovery after the out moves the objects the
+        # earlier steps left, and no files
+        await asyncio.gather(*[st.remove(name) for name in files])
+
+        # the write-back cache over EC objects
+        targets = [names[(OSD_CLS_REWRITES + j) % n_obj]
+                   for j in range(min(OSD_CACHE_OBJECTS, n_obj))]
+        index = {name: names.index(name) for name in targets}
+        locks = {}
+
+        async def reader(oid, off, length):
+            try:
+                return await ec_io.read(oid, length=length, offset=off)
+            except ObjectOperationError as e:
+                if e.retcode == -errno.ENOENT:
+                    return b""
+                raise
+
+        async def writer(oid, off, data):
+            """EC pools refuse partial writes: read the whole object,
+            patch it and rewrite it, one rewrite at a time per object."""
+            async with locks.setdefault(oid, asyncio.Lock()):
+                cur = bytearray(await ec_io.read(oid))
+                cur.extend(b"\0" * max(0, off + len(data) - len(cur)))
+                cur[off:off + len(data)] = data
+                await ec_io.write_full(oid, bytes(cur))
+
+        cache = ObjectCacher(reader, writer)
+        cache.start()
+        window = min(OSD_CACHE_WINDOW, size)
+        slots = window // OSD_CACHE_WRITE
+        patched = {name: bytearray(ec_objects[j])
+                   for name, j in index.items()}
+        writes = []
+        for _ in range(OSD_CACHE_WRITES):
+            name = targets[int(rng.integers(len(targets)))]
+            off_w = int(rng.integers(slots)) * OSD_CACHE_WRITE
+            data = rng.integers(0, 256, OSD_CACHE_WRITE,
+                                dtype=np.uint8).tobytes()
+            writes.append((name, off_w, data))
+            patched[name][off_w:off_w + len(data)] = data
+        cache_lat = []
+
+        async def cache_writes():
+            for name, off_w, data in writes:
+                t = time.perf_counter()
+                await cache.write(name, off_w, data)
+                cache_lat.append(time.perf_counter() - t)
+
+        await step("client cache write", [cache_writes()])
+        out["client cache write"].update(
+            p50_ms=_pct(cache_lat, 50) * 1e3,
+            p99_ms=_pct(cache_lat, 99) * 1e3)
+        await step("client cache flush", [cache.flush_all()])
+        await cache.stop()
+        got = await asyncio.gather(*[ec_io.read(name) for name in targets])
+        check(got == [bytes(patched[name]) for name in targets],
+              "client cache: an EC object read back differs from its "
+              "patched contents")
+        t_cpu = time.perf_counter()
+        for name, j in index.items():
+            ec_objects[j] = bytes(patched[name])
+            ec_digests[j] = hashlib.sha256(ec_objects[j]).digest()
+        for j, d in zip(index.values(),
+                        chunk_digests([ec_objects[j]
+                                       for j in index.values()], k, m)):
+            ec_want[j] = d
+        walls["client cpu_digests"] = time.perf_counter() - t_cpu
+        leave_site()
+        wall = time.perf_counter() - t_all
+        file_bytes = client_files * client_file_bytes
+        s = out["client"] = {
+            "wall_s": wall, "files": client_files,
+            "file_bytes": client_file_bytes,
+            "cache_objects": len(targets), "cache_writes": len(writes),
+            "cache_stats": dict(cache.stats),
+            "k1_cache": out["client cache write"]["k1"]
+            + out["client cache flush"]["k1"],
+            "d1_objecter": state["objecter_sites"]["client objecter"]}
+        report("client files write", file_bytes,
+               f"; {client_files} files of {client_file_bytes} B striped "
+               f"over {DEFAULT_LAYOUT.object_size} B objects "
+               f"({DEFAULT_LAYOUT.stripe_unit} B stripe unit), all in "
+               f"flight, each stat equal")
+        report("client files read", file_bytes, "; each equal")
+        report("client files edit", win,
+               f"; a {win} B window read and overwritten, one file cut to "
+               f"half, one removed with every sub-object")
+        report("client cache write", len(writes) * OSD_CACHE_WRITE,
+               f"; {len(writes)} writes of {OSD_CACHE_WRITE} B into the "
+               f"cache over {len(targets)} EC objects (first {window} B "
+               f"of each)")
+        report("client cache flush", len(writes) * OSD_CACHE_WRITE,
+               f"; flush_all by read-patch-rewrite, every object read "
+               f"back equal to its patched contents; cache stats "
+               f"{s['cache_stats']}")
+        print(f"phase {tag} client: {wall:.4f} s in all; gf_apply "
+              f"{s['k1_cache']} launches at the cache's writes and flush; "
+              f"crush_map {s['d1_objecter']} launches at the Objecter "
+              f"(host clock); card {smi}")
+
     async def run():
         try:
             # 1. three mons, the cluster by command, the OSDs' own boots
             t = time.perf_counter()
             blob = await on_mons(start_mons())
+            if mesh:
+                # the OSDs' start() registers on this executor
+                mesh_exec.disable()
+                mesh_exec.enable(devices=[dev] * mesh_positions)
             kernel.gf_apply_launches = 0      # the phase's counts from 0
             ck.crush_map_launches = 0
             admin = state["admin"] = Rados(
@@ -3201,13 +3499,22 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
                   f"shards on {o0.shards.active_backend} lanes per OSD, EC "
                   f"queue mode {o0.ec_queue.mode}; config cut from the "
                   f"defaults: {cut} (host clock)")
+            if mesh:
+                ex = mesh_exec.current()
+                check(sorted(ex.osds) == list(range(osds)),
+                      f"mesh mode: {sorted(ex.osds)} registered")
+                print(f"phase {tag} boot: the mesh executor over "
+                      f"{len(ex.devices)} positions on "
+                      f"{sorted({str(d) for d in ex.devices})}, "
+                      f"{len(ex.osds)} OSDs registered")
             await admin.mon_command({
                 "prefix": "osd erasure-code-profile set", "name": "rs",
                 "profile": {"plugin": "rs", "k": str(k), "m": str(m)}})
             await admin.pool_create("ec", pg_num=ec_pgs,
                                     pool_type="erasure",
                                     erasure_code_profile="rs")
-            await admin.pool_create("rep", pg_num=rep_pgs, size=3)
+            if rep_pgs:
+                await admin.pool_create("rep", pg_num=rep_pgs, size=3)
             await wait(settled, "every PG active+clean")
             walls["clean"] = time.perf_counter() - t
             out["boot"] = {"up_in_s": walls["up_in"],
@@ -3215,15 +3522,14 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
                            "epoch": admin.monc.osdmap.epoch,
                            "d1": d1_sites()}
             print(f"phase {tag} boot: pools ec (RS k={k} m={m}, {ec_pgs} "
-                  f"PGs) and rep (size 3, {rep_pgs} PGs); every PG "
+                  f"PGs) and rep (size 3, {rep_pgs} PGs, 0: none); every PG "
                   f"active+clean after {walls['clean']:.4f} s at "
                   f"e{out['boot']['epoch']}; batched placements by call "
                   f"site {out['boot']['d1']} (host clock)")
             if proc and on_card:
                 lane_memory("after boot")
             ec_pool = admin.monc.osdmap.lookup_pool("ec")
-            rep_pool = admin.monc.osdmap.lookup_pool("rep")
-            ec_io, rep_io = admin.open_ioctx("ec"), admin.open_ioctx("rep")
+            ec_io = admin.open_ioctx("ec")
 
             # 2-3. the EC write, every object in flight; read back; every
             # stored shard against the CPU codec's chunk
@@ -3254,26 +3560,32 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
                   f" s; {shards_note}")
             report("ec read", total)
 
-            # 4. the replicated pool: three equal replicas of each object
-            await step("rep write", [rep_io.write_full(n, o)
-                                     for n, o in zip(names, objects)])
-            got = await step("rep read", [rep_io.read(n) for n in names])
-            check([hashlib.sha256(g).digest() for g in got] == digests,
-                  "a replicated object read back differs from its source")
-            if not proc:
-                bad = sum({stored(o, rep_pool, pg, -1, names[j])
-                           for o in acting} != {digests[j]}
-                          or len(acting) != 3
-                          for j, (pg, acting) in enumerate(
-                              placement(rep_pool)))
-                check(bad == 0, f"{bad} objects' replicas differ")
-            report("rep write", total, "" if proc
-                   else "; three equal replicas of each")
-            report("rep read", total)
+            if rep_pgs:
+                # 4. the replicated pool: three equal replicas of each
+                rep_pool = admin.monc.osdmap.lookup_pool("rep")
+                rep_io = admin.open_ioctx("rep")
+                await step("rep write", [rep_io.write_full(n, o)
+                                         for n, o in zip(names, objects)])
+                got = await step("rep read", [rep_io.read(n) for n in names])
+                check([hashlib.sha256(g).digest() for g in got] == digests,
+                      "a replicated object read back differs from its "
+                      "source")
+                if not proc:
+                    bad = sum({stored(o, rep_pool, pg, -1, names[j])
+                               for o in acting} != {digests[j]}
+                              or len(acting) != 3
+                              for j, (pg, acting) in enumerate(
+                                  placement(rep_pool)))
+                    check(bad == 0, f"{bad} objects' replicas differ")
+                report("rep write", total, "" if proc
+                       else "; three equal replicas of each")
+                report("rep read", total)
 
-            # 5. object classes: the guarded EC rewrite, xattr classes on
-            # EC, an RGW bucket index on the replicated pool
-            await cls_step(ec_io, rep_io)
+                # 5. object classes: the guarded EC rewrite, xattr classes
+                # on EC, an RGW bucket index on the replicated pool; then
+                # the striped file set and the write-back cache
+                await cls_step(ec_io, rep_io)
+                await client_step(ec_io, rep_io)
 
             # 6. stop the two OSDs holding the most EC shards; mark them
             # down: reads of objects that lost a data shard decode
@@ -3347,8 +3659,9 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
                 t = time.perf_counter()
                 await read_all(ec_io, "after recovery", "an EC object",
                                ec_digests)
-                await read_all(rep_io, "after recovery",
-                               "a replicated object", digests)
+                if rep_pgs:
+                    await read_all(rep_io, "after recovery",
+                                   "a replicated object", digests)
                 walls["read after recovery"] = time.perf_counter() - t
                 if on_card:
                     lane_memory("after recovery")
@@ -3357,7 +3670,7 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
             s["epochs"] = admin.monc.osdmap.epoch - out["boot"]["epoch"]
             report("recovery", moved * (size // k),
                    f"; {moved} shards moved, " + (
-                       f"then all {2 * n_obj} objects read back equal in "
+                       f"then every object read back equal in "
                        f"{walls['read after recovery']:.4f} s"
                        if proc else "each rebuilt equal to the CPU codec's "
                        "chunk") + f"; {s['epochs']} epochs since the pools "
@@ -3385,6 +3698,13 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
             for o in list(live.values()):
                 await o.shutdown()
             await on_mons(stop_mons())
+            if mesh:
+                out["mesh_counts"] = mesh_counts()
+                out["recover_stripes"] = dict(
+                    mesh_exec.current().rec_stripes)
+                print(f"phase {tag} recover launches by stripes stacked: "
+                      f"{dict(sorted(out['recover_stripes'].items()))}")
+                mesh_exec.disable()
 
     try:
         asyncio.run(run())
@@ -3401,17 +3721,34 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
         # placements; the workers every K1 and the rest of D1
         out["d1_wrapper"] += out["lane_wrappers"]["crush_map"]
         out["k1_wrapper"] += out["lane_wrappers"]["gf_apply"]
-    k1 = {"encode": out["ec write"]["k1"],
-          "degraded read": out["degraded read"]["k1"],
-          "rebuild": out["recovery"]["k1"],
-          "cls write": out["cls write"]["k1"]}
+    if mesh:
+        # every K1 of the phase in the executor, none from the queues
+        k1 = {"mesh encode": out["mesh_counts"]["encode k1"],
+              "mesh recover": out["mesh_counts"]["recover k1"]}
+    else:
+        k1 = {"encode": out["ec write"]["k1"],
+              "degraded read": out["degraded read"]["k1"],
+              "rebuild": out["recovery"]["k1"],
+              "cls write": out["cls write"]["k1"],
+              "client cache": out["client"]["k1_cache"]}
     out["k1_launches"] = k1
     if on_card:
         check(out["d1_wrapper"] == sum(d1.values()),
               f"crush_map launches {out['d1_wrapper']}, by call site {d1}")
-        check(out["k1_wrapper"] == sum(out["k1_by_queue"].values()),
+        queues = sum(out["k1_by_queue"].values())
+        check(out["k1_wrapper"] == queues + (sum(k1.values()) if mesh
+                                              else 0),
               f"gf_apply launches {out['k1_wrapper']}, by queue "
-              f"{out['k1_by_queue']}")
+              f"{out['k1_by_queue']}, the mesh executor's {k1 if mesh else 0}")
+        if mesh:
+            counts = out["mesh_counts"]
+            check(queues == 0, f"mesh mode: the batch queues launched "
+                               f"{out['k1_by_queue']}")
+            check(counts["in-process sub-ops"] > 0,
+                  "mesh mode: no sub-op was delivered in process")
+            for key, (lo, hi) in OSD_MESH_RANGES.items():
+                check(lo <= counts[key] <= hi,
+                      f"mesh mode: {key} {counts[key]}, stated {lo}-{hi}")
         for site, (lo, hi) in d1_ranges.items():
             check(lo <= d1[site] <= hi, f"crush_map launches at {site}: "
                                         f"{d1[site]}, stated {lo}-{hi}")
@@ -3432,6 +3769,189 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
           f"{k1}; their wrapper spans {kernel_ms:.4f} ms (host work "
           f"included), {kernel_ms / 10 / out['phase_s']:.4f} % of the "
           f"phase; card {smi}")
+    return out
+
+
+#: the client step's entries in the host-paths line
+CLIENT_STEPS = ("client", "client files write", "client files read",
+                "client files edit", "client cache write",
+                "client cache flush")
+MESH_LANES = 512 << 10        # bytes per chunk row in the mesh steps alone
+MESH_RECOVER_STRIPES = 64
+MESH_RECOVER_LOST = (1, 4)
+
+
+def mesh_steps_phase(torch, np, gf256, dev, smi, flush,
+                     rec_stripes=()):
+    """D3 and D4 alone on the card, each held bit for bit against the same
+    step with K1's plain version (``plain=True``) and timed by median CUDA
+    events with L2 flushed, beside its bytes bound (inputs read once,
+    outputs written once; moves between positions on one device move no
+    bytes): ``ec_cluster_step`` over 12 positions (3 x 4) at [12, 8,
+    512 Ki]; ``ec_recover_step`` over 8 positions (1 x 8: one survivor
+    each) at [64, 8, 512 Ki], 2 data chunks lost, also against the
+    original data; ``_mesh_recover_fn`` over the mesh run's 12 positions
+    (3 x 4) at the stripe counts that run stacked (``rec_stripes``: 1 and
+    the largest), padded as ``MeshExecutor._rec_launch`` pads them, its
+    bound counting the stripes alone, with the pad's cost at one stripe
+    (a 1 x 8 mesh needs none; also staged from the host); and
+    ``_mesh_encode_fn`` at n = 12, k = 8, 512 Ki lanes (reading the k
+    data rows), also against the data rows.  Returns one row per
+    step."""
+    from ceph_tpu_torch.ec import kernel
+    from ceph_tpu_torch.parallel import layout, mesh_exec
+    rng = np.random.default_rng(SEED + 48)
+    gen = gf256.rs_vandermonde_matrix(K, M)
+    L = MESH_LANES
+    rows = []
+
+    def row(name, step, plain, x, out_bytes, in_bytes, extra):
+        got, want = step(x), plain(x)
+        if isinstance(got, tuple):
+            pairs = [(got[0].gather(), want[0].gather()), (got[1], want[1])]
+        else:
+            pairs = [(got.gather(), want.gather())]
+        bad = sum(int((a != b).sum().item()) for a, b in pairs)
+        err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max()
+                      .item()) for a, b in pairs)
+        k1 = step.k1_launches / step.runs
+        ms = median_ms(torch, lambda: step(x), 25, flush)
+        plain_ms = median_ms(torch, lambda: plain(x), 5, flush)
+        bound_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+        r = {"name": name, "mismatches": bad, "max_abs_err": err,
+             "k1_per_run": k1, "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": bound_ms, "bound_by": "bytes", **extra}
+        rows.append(r)
+        check(bad == 0, f"{name}: {bad} bytes differ from the plain step")
+        print(f"phase mesh steps {name}: {extra['shape']} over "
+              f"{extra['mesh']}: {bad} mismatched bytes against the plain "
+              f"step; K1 launches per run {k1:g}; median {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, bytes bound {bound_ms:.4f} ms "
+              f"({bound_ms / ms * 100:.1f}% of bound); card {smi}")
+        return got
+
+    positions = [dev] * MESH_POSITIONS
+    mesh = layout.make_mesh(MESH_POSITIONS, devices=positions)
+    data = torch.from_numpy(rng.integers(0, 256, (MESH_POSITIONS, K, L),
+                                         dtype=np.uint8)).to(dev)
+    x = layout.host_sharded(mesh, data, ("host", None, "shard"))
+    row("ec_cluster_step", layout.ec_cluster_step(mesh, gen[K:]),
+        layout.ec_cluster_step(mesh, gen[K:], plain=True), x,
+        MESH_POSITIONS * M * L, data.numel(),
+        {"mesh": dict(mesh.shape),
+         "shape": f"[{MESH_POSITIONS}, {K}, {L}] -> [{MESH_POSITIONS}, "
+                  f"{M}, {L}] uint8 + scrub [{M}]"})
+
+    mesh8 = layout.make_mesh(K, devices=[dev] * K)
+    B = MESH_RECOVER_STRIPES
+    lost = list(MESH_RECOVER_LOST)
+    stripes = torch.from_numpy(rng.integers(0, 256, (K, B * L),
+                                            dtype=np.uint8)).to(dev)
+    parity = kernel.gf_apply(kernel.from_reference_matrix(gen[K:], dev),
+                             stripes)
+    full = torch.cat([stripes, parity]).view(K + M, B, L).permute(1, 0, 2)
+    present = [i for i in range(K + M) if i not in lost][:K]
+    surv = full[:, present, :].contiguous()
+    dec = gf256.decode_matrix(gen, present, lost)
+    xs = layout.host_sharded(mesh8, surv, ("host", "shard", None))
+    got = row("ec_recover_step", layout.ec_recover_step(mesh8, dec, K),
+              layout.ec_recover_step(mesh8, dec, K, plain=True), xs,
+              B * len(lost) * L, surv.numel(),
+              {"mesh": dict(mesh8.shape),
+               "shape": f"[{B}, {K}, {L}] -> [{B}, {len(lost)}, {L}] "
+                        f"uint8 + scrub [{len(lost)}], lost {lost}"})
+    check(torch.equal(got[0].gather(), full[:, lost, :]),
+          "ec_recover_step: the rebuilt chunks differ from the data")
+
+    # _mesh_recover_fn as the mesh run calls it: 8 survivors over the 12
+    # positions (3 x 4), B stripes padded to Bp, a host-row multiple; at
+    # B = 1 (a degraded read) and at the largest B the run stacked
+    positions = (layout.position_device(dev),) * MESH_POSITIONS
+    dec_bytes = np.ascontiguousarray(dec, np.uint8).tobytes()
+    fn, host = mesh_exec._mesh_recover_fn(K, len(lost), dec_bytes,
+                                          positions)
+    pfn, _ = mesh_exec._mesh_recover_fn(K, len(lost), dec_bytes,
+                                        positions, True)
+    for b in sorted({1, max(rec_stripes, default=1)}):
+        d = torch.from_numpy(rng.integers(0, 256, (K, b * L),
+                                          dtype=np.uint8)).to(dev)
+        p = kernel.gf_apply(kernel.from_reference_matrix(gen[K:], dev), d)
+        f = torch.cat([d, p]).view(K + M, b, L).permute(1, 0, 2)
+        bp = host * mesh_exec._pow2_at_least(-(-b // host))
+        inp = torch.zeros((bp, K, L), dtype=torch.uint8, device=dev)
+        inp[:b] = f[:, present, :]
+        extra = {"mesh": {"host": host, "shard": MESH_POSITIONS // host},
+                 "stripes": b, "padded_stripes": bp,
+                 "shape": f"[{b}, {K}, {L}] padded to [{bp}, {K}, {L}] "
+                          f"-> [{bp}, {len(lost)}, {L}] uint8 + scrub "
+                          f"[{len(lost)}], lost {lost}"}
+        if b == 1 and host > 1:
+            # what the pad costs: the same stripe on a 1 x 8 mesh (no
+            # pad), and both staged from the host as _rec_launch stages
+            one, _ = mesh_exec._mesh_recover_fn(K, len(lost), dec_bytes,
+                                                positions[:K])
+            x1 = inp[:1].contiguous()
+            h1, hp = x1.cpu(), inp.cpu()
+            extra["unpadded_ms"] = median_ms(torch, lambda: one(x1), 25,
+                                             flush)
+            extra["staged_ms"] = median_ms(torch, lambda: fn(hp), 25,
+                                           flush)
+            extra["unpadded_staged_ms"] = median_ms(
+                torch, lambda: one(h1), 25, flush)
+            print(f"phase mesh steps mesh_recover B=1: padded to {bp} "
+                  f"stripes against 1 x {K} unpadded "
+                  f"{extra['unpadded_ms']:.4f} ms; staged from the host "
+                  f"{extra['staged_ms']:.4f} ms against "
+                  f"{extra['unpadded_staged_ms']:.4f} ms; card {smi}")
+        got = row(f"mesh_recover B={b}", fn, pfn, inp, b * len(lost) * L,
+                  b * K * L, extra)
+        check(torch.equal(got[0].gather()[:b], f[:, lost, :]),
+              f"mesh_recover B={b}: the rebuilt chunks differ from the "
+              f"data")
+
+    dev0 = layout.position_device(dev)
+    gen_bytes = np.ascontiguousarray(gen, np.uint8).tobytes()
+    fn, _ = mesh_exec._mesh_encode_fn(K + M, K, gen_bytes,
+                                      (dev0,) * (K + M))
+    pfn, _ = mesh_exec._mesh_encode_fn(K + M, K, gen_bytes,
+                                       (dev0,) * (K + M), True)
+    inp = torch.zeros((K + M, L), dtype=torch.uint8, device=dev)
+    inp[:K] = stripes[:, :L]
+    got = row("mesh_encode", fn, pfn, inp, (K + M) * L, K * L,
+              {"mesh": {"shard": K + M},
+               "shape": f"[{K + M}, {L}] -> [{K + M}, {L}] uint8 "
+                        f"(data rows in, each position its shard out)"})
+    check(torch.equal(got.gather()[:K], stripes[:, :L])
+          and torch.equal(got.gather()[K:], parity[:, :L]),
+          "mesh_encode: the shards differ from the data and its parity")
+    return rows
+
+
+def model_phase(kernel, ck, smi):
+    """One model-checker run on the card, as tests/test_thrash.py runs its
+    EC seed: ``run_model(101, rounds=50, n_osds=5, pool_kw={"pool_type":
+    "erasure", "k": 2, "m": 2})`` (writes, deletes, reads and snapshots
+    raced against OSD kills, restarts, out/in flaps and false down marks,
+    every read checked against the model) on the port's Cluster at its
+    default device; fails unless it reports ok and D1 ran.  K1's and D1's
+    launches in the run are the wrappers' counts (its OSDs' queues; the
+    Objecter's and the OSDs' placements).  The checker's objects are at
+    most 4 KiB, so each EC chunk is below the batch queue's device
+    threshold and takes its host apply: K1 launches 0 times here."""
+    from ceph_tpu_torch.qa.rados_model import run_model
+    k1_0, d1_0 = kernel.gf_apply_launches, ck.crush_map_launches
+    t = time.perf_counter()
+    res = asyncio.run(run_model(101, rounds=50, n_osds=5, pool_kw={
+        "pool_type": "erasure", "k": 2, "m": 2}))
+    wall = time.perf_counter() - t
+    out = {"result": res, "wall_s": wall,
+           "k1": kernel.gf_apply_launches - k1_0,
+           "d1": ck.crush_map_launches - d1_0}
+    print(f"phase model: run_model(101, rounds=50, n_osds=5, RS k=2 m=2) "
+          f"{json.dumps(res)} in {wall:.3f} s; gf_apply {out['k1']} "
+          f"launches, crush_map {out['d1']} (host clock); card {smi}")
+    check(res["ok"], f"model: the checker failed: {res['failures']}")
+    check(out["d1"] > 0, f"model: crush_map launched {out['d1']} times")
     return out
 
 
@@ -3780,9 +4300,23 @@ def main() -> int:
                           lanes="process")
     finally:
         shutil.rmtree(tmpdir, ignore_errors=True)
+    # -- phase 17: mesh mode on the same cluster's EC pool -----------------
+    tmpdir = tempfile.mkdtemp(prefix="smoke-osd-mesh")
+    try:
+        meshed = osd_phase(np, kernel, dev, smi, objects, tmpdir, rep_pgs=0,
+                           mesh_positions=MESH_POSITIONS)
+    finally:
+        shutil.rmtree(tmpdir, ignore_errors=True)
     del objects
+    # -- phase 18: D3 and D4 alone, against their plain versions ---------
+    rec_stripes = meshed["recover_stripes"]
+    mesh_steps = {r["name"]: r for r in mesh_steps_phase(
+        torch, np, gf256, dev, smi, flush, rec_stripes)}
+    # -- phase 19: one model-checker run ----------------------------------
+    from ceph_tpu_torch.ops import crush_kernel as ck
+    model = model_phase(kernel, ck, smi)
 
-    # -- phase 17: the probe's timing, the kernels line -----------------
+    # -- phase 20: the probe's timing, the kernels line -----------------
     cfg0 = kernel.TUNE_SPACE[0]
     k2_ms = median_ms(
         torch, lambda: kernel.gf_apply_checksum(ops, data, cfg0), 25, flush)
@@ -3807,6 +4341,7 @@ def main() -> int:
                                          "rep write", "rep read", "cls",
                                          "cls write", "cls replay",
                                          "cls xattr", "cls index",
+                                         *CLIENT_STEPS,
                                          "degraded read", "recovery",
                                          "phase_s", "lost")},
                                      "osd lanes": {key: lanes[key] for key in (
@@ -3814,9 +4349,16 @@ def main() -> int:
                                          "rep write", "rep read", "cls",
                                          "cls write", "cls replay",
                                          "cls xattr", "cls index",
+                                         *CLIENT_STEPS,
                                          "degraded read", "recovery",
                                          "phase_s", "lost", "workers",
-                                         "worker_mib", "walls")}}}))
+                                         "worker_mib", "walls")},
+                                     "osd mesh": {key: meshed[key] for key in (
+                                         "boot", "ec write", "ec read",
+                                         "degraded read", "recovery",
+                                         "phase_s", "lost", "mesh_counts",
+                                         "walls")},
+                                     "model": model}}))
     print(json.dumps({"kernels": [{
         "name": "gf_apply",
         "route": "cuda",
@@ -3828,7 +4370,8 @@ def main() -> int:
         + store["encode_launches"] + store["rebuild_launches"]
         + sum(mon["k1_launches"].values())
         + sum(osd["k1_launches"].values())
-        + sum(lanes["k1_launches"].values()),
+        + sum(lanes["k1_launches"].values())
+        + sum(meshed["k1_launches"].values()) + model["k1"],
         "launches_by_path": {"queue": launches} | {
             f"{plugin} {step}": n for plugin, c in codecs.items()
             for step, n in c["launches"].items()} | {
@@ -3838,7 +4381,9 @@ def main() -> int:
             f"mon {step}": n for step, n in mon["k1_launches"].items()} | {
             f"osd {step}": n for step, n in osd["k1_launches"].items()} | {
             f"osd lanes {step}": n
-            for step, n in lanes["k1_launches"].items()},
+            for step, n in lanes["k1_launches"].items()} | {
+            f"osd {step}": n for step, n in meshed["k1_launches"].items()} | {
+            "model": model["k1"]},
         "narrow_shapes": narrow,
         "mismatches": mismatches,
         "max_abs_err": max_abs_err,
@@ -3876,7 +4421,8 @@ def main() -> int:
                      + store["d1_launches"]
                      + sum(mon["d1_launches"].values())
                      + sum(osd["d1_launches"].values())
-                     + sum(lanes["d1_launches"].values())),
+                     + sum(lanes["d1_launches"].values())
+                     + sum(meshed["d1_launches"].values()) + model["d1"]),
         "launches_by_path": {"batch_do_rule_arrays": crush["map_launches"],
                              "osdmap": osdmap_launches,
                              "crushtool --test": tool["launches"],
@@ -3885,7 +4431,10 @@ def main() -> int:
             f"mon {step}": n for step, n in mon["d1_launches"].items()} | {
             f"osd {site}": n for site, n in osd["d1_launches"].items()} | {
             f"osd lanes {site}": n
-            for site, n in lanes["d1_launches"].items()},
+            for site, n in lanes["d1_launches"].items()} | {
+            f"osd mesh {site}": n
+            for site, n in meshed["d1_launches"].items()} | {
+            "model": model["d1"]},
         "mismatches": crush["map_mismatches"],
         "max_abs_err": crush["map_max_abs_err"],
         "ms": crush["map_ms"],
@@ -3912,7 +4461,43 @@ def main() -> int:
         "bound_by": crush["win_bound_by"],
         "library_ms": None,
         "shape": crush["win_shape"],
-    }]}))
+    }] + [{
+        "name": name,
+        "route": "cuda: K1 launches and in-process collectives",
+        "source": src,
+        "replaces": replaces,
+        "replaces_function": fn_name,
+        "launches": launches,
+        "launches_by_path": {"osd mesh": launches},
+        "k1_per_launch": mesh_steps[name]["k1_per_run"],
+        "mismatches": mesh_steps[name]["mismatches"],
+        "max_abs_err": mesh_steps[name]["max_abs_err"],
+        "ms": mesh_steps[name]["ms"],
+        "plain_ms": mesh_steps[name]["plain_ms"],
+        "bound_ms": mesh_steps[name]["bound_ms"],
+        "bound_by": mesh_steps[name]["bound_by"],
+        "library_ms": None,
+        "mesh": mesh_steps[name]["mesh"],
+        "shape": mesh_steps[name]["shape"],
+        **{key: mesh_steps[name][key] for key in (
+            "stripes", "padded_stripes", "unpadded_ms", "staged_ms",
+            "unpadded_staged_ms") if key in mesh_steps[name]},
+    } for name, src, replaces, fn_name, launches in (
+        ("ec_cluster_step", "ceph_tpu_torch/parallel/layout.py",
+         "ceph_tpu/parallel/layout.py:65", "ec_cluster_step (D3)", 0),
+        ("ec_recover_step", "ceph_tpu_torch/parallel/layout.py",
+         "ceph_tpu/parallel/layout.py:101", "ec_recover_step (D3)", 0),
+        *[(f"mesh_recover B={b}", "ceph_tpu_torch/parallel/mesh_exec.py",
+           "ceph_tpu/parallel/mesh_exec.py:58",
+           "_mesh_recover_fn (D4) over ec_recover_step (D3, "
+           "ceph_tpu/parallel/layout.py:101)",
+           # the run's launches of one stripe, and of more than one (timed
+           # at the most the run stacked)
+           sum(n for sb, n in rec_stripes.items() if (sb == 1) == (b == 1)))
+          for b in sorted({1, max(rec_stripes, default=1)})],
+        ("mesh_encode", "ceph_tpu_torch/parallel/mesh_exec.py",
+         "ceph_tpu/parallel/mesh_exec.py:86", "_mesh_encode_fn (D4)",
+         meshed["mesh_counts"]["encode launches"]))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -329,7 +329,8 @@ def test_half_port_half_reference_osds_write_read_and_recover(ref_backoff):
 # ------------------------------------------- chip_smoke's osd phase, small
 
 SMALL = {"osds": 6, "k": K, "m": M, "ec_pgs": 16, "rep_pgs": 32,
-         "queue_mode": "force"}
+         "queue_mode": "force",
+         "client_files": 3, "client_file_bytes": 3 << 19}
 
 
 def test_chip_smoke_osd_phase_on_the_cpu(tmp_path, capsys):
@@ -343,7 +344,10 @@ def test_chip_smoke_osd_phase_on_the_cpu(tmp_path, capsys):
     rewrite), replays the guard (-ECANCELED), takes a lock and refcounts
     on EC and builds a bucket index of every replicated object; the
     degraded reads and rebuilt shards are held against the new
-    contents."""
+    contents.  Its client step writes a striped file set on the
+    replicated pool, reads, edits, truncates and removes files, and
+    patches EC objects through a write-back cache (K1 encodes each
+    flush's rewrite); later EC checks hold the patched contents."""
     import torch
 
     from ceph_tpu_torch.ec import kernel
@@ -367,10 +371,16 @@ def test_chip_smoke_osd_phase_on_the_cpu(tmp_path, capsys):
     assert cls["k1"] == out["k1_launches"]["cls write"] > 0
     assert out["d1_launches"]["cls objecter"] == cls["d1_objecter"]
     assert cls["ops"] == 3 * len(objects) + 8
+    client = out["client"]
+    assert client["files"] == 3 and client["cache_objects"] == len(objects)
+    assert client["cache_writes"] == chip_smoke.OSD_CACHE_WRITES
+    assert client["k1_cache"] == out["k1_launches"]["client cache"] > 0
+    assert client["cache_stats"]["flushes"] > 0
+    assert out["d1_launches"]["client objecter"] == client["d1_objecter"]
     text = capsys.readouterr().out
     for step in ("boot", "ec write", "ec read", "rep write", "rep read",
                  "cls write", "cls replay", "cls xattr", "cls index", "cls",
-                 "degraded read", "recovery"):
+                 *chip_smoke.CLIENT_STEPS, "degraded read", "recovery"):
         assert f"phase osd {step}:" in text, step
 
 

@@ -46,6 +46,13 @@ SLICE12 = tuple(f"cls/{m}.py" for m in (
     "inotable"))
 
 
+#: mesh mode and the rest of the client
+SLICE13 = ("parallel/__init__.py", "parallel/layout.py",
+           "parallel/mesh_exec.py", "services/__init__.py",
+           "services/striper.py", "client/object_cacher.py",
+           "client/rados_striper.py", "qa/rados_model.py")
+
+
 def _sources():
     out = [os.path.join(ROOT, "chip_smoke.py"),
            os.path.join(ROOT, "crush_probe.py"),
@@ -78,7 +85,7 @@ def test_sources_exist():
                 "common/encoding.py", "native/__init__.py", "ec/lrc.py",
                 "ec/shec.py", "crush/compiler.py", "tools/crushtool.py",
                 "tools/psim.py", "common/crc.py", "common/xxhash.py",
-                *SLICE6, *SLICE7, *SLICE8, *SLICE12):
+                *SLICE6, *SLICE7, *SLICE8, *SLICE12, *SLICE13):
         assert os.path.join(ROOT, "ceph_tpu_torch", mod) in srcs, mod
 
 
@@ -235,3 +242,30 @@ def test_smoke_walls_runs_the_script_and_passes_its_code_on(tmp_path):
     assert last["rc"] == 3 and last["total_s"] > 0
     assert list(last["phases_s"]) == ["start", "one", "two", "end"]
     assert abs(sum(last["phases_s"].values()) - last["total_s"]) < 1e-6
+
+
+def test_slice13_modules_mirror_the_reference_and_import_alone():
+    """Mesh mode (parallel/), the striper service, the write-back cache,
+    the striped client and the model checker sit at their reference's
+    paths; importing them in a fresh interpreter loads neither JAX nor
+    the JAX package, and the services package exports the striper
+    alone (the reference's also exports rbd, not ported yet)."""
+    for mod in SLICE13:
+        assert os.path.exists(os.path.join(ROOT, "ceph_tpu", mod)), mod
+    code = ("import sys\n"
+            "import ceph_tpu_torch.parallel.mesh_exec\n"
+            "import ceph_tpu_torch.parallel.layout\n"
+            "import ceph_tpu_torch.services as services\n"
+            "import ceph_tpu_torch.client.object_cacher\n"
+            "import ceph_tpu_torch.client.rados_striper\n"
+            "import ceph_tpu_torch.qa.rados_model\n"
+            "assert sorted(services.__all__) == ['Extent', 'Layout', "
+            "'extents_by_object', 'file_to_extents']\n"
+            "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+            "('jax', 'jaxlib', 'ceph_tpu'))\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr

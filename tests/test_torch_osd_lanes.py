@@ -248,7 +248,8 @@ def test_a_worker_keeps_each_map_it_is_sent_for_the_interval_walks():
 #: then outwait their 10 s and the workers log ERROR
 #: ("peering failed"), which fails the run as it should on the card
 LANES_SMALL = {"osds": 8, "k": 2, "m": 2, "ec_pgs": 8, "rep_pgs": 16,
-               "queue_mode": "force", "lanes": "process"}
+               "queue_mode": "force", "lanes": "process",
+               "client_files": 3, "client_file_bytes": 3 << 19}
 
 
 def test_chip_smoke_process_lane_run_on_the_cpu(tmp_path, capsys):
@@ -284,7 +285,8 @@ def test_chip_smoke_process_lane_run_on_the_cpu(tmp_path, capsys):
     assert out["k1_launches"]["cls write"] == out["cls"]["k1"] > 0
     assert out["cls write"]["parent_k1"] == 0
     text = capsys.readouterr().out
+    assert out["k1_launches"]["client cache"] == out["client"]["k1_cache"] > 0
     for step in ("boot", "ec write", "ec read", "rep write", "rep read",
                  "cls write", "cls replay", "cls xattr", "cls index", "cls",
-                 "degraded read", "recovery"):
+                 *chip_smoke.CLIENT_STEPS, "degraded read", "recovery"):
         assert f"phase osd-lanes {step}:" in text, step

@@ -19,7 +19,8 @@
   interval and granted once (no up_thru storm after a down-mark),
   scheduled scrubs on clean PGs only, and a peering query sent from an
   epoch the OSD has not applied waiting for that map (C2: else another
-  EC shard's copy of the PG answers it);
+  EC shard's copy of the PG answers it), and peering waiting on an up
+  peer that answers late (the JAX package fails the round);
 - the lazy imports that waited for this slice now land in the port.
 
 Tolerance 0: bytes and counts are compared exactly.
@@ -176,12 +177,28 @@ def test_the_default_device_raises_without_a_card():
 @pytest.mark.parametrize("cfg,names", [
     ({"osd_mesh_mode": "on"}, "A8"),
 ])
-def test_unported_modes_are_refused_at_start(cfg, names):
-    osd = _osd(cfg=cfg)
-    with pytest.raises(RuntimeError, match=names):
-        asyncio.run(osd.start())
-    assert not osd.running and osd.mesh_exec is None
-    assert osd.shards.process_lanes is None
+def test_unported_modes_are_refused_at_start(cfg, names, monkeypatch):
+    """No mode is refused at start() any more: mesh mode (ROADMAP A8,
+    once refused here) is ported, and start() enables the process-wide
+    mesh executor and registers the OSD on it, as the JAX package's
+    does, before it authenticates (stopped there: no mon)."""
+    from ceph_tpu_torch.osd.daemon import OSD
+    from ceph_tpu_torch.parallel import mesh_exec
+
+    async def no_mon(self):
+        raise RuntimeError(f"authenticate ({names} ported)")
+
+    monkeypatch.setattr(OSD, "_authenticate", no_mon)
+    mesh_exec.disable()
+    ex = mesh_exec.enable(devices=["cpu"] * 4)
+    try:
+        osd = _osd(cfg=cfg)
+        with pytest.raises(RuntimeError, match="authenticate"):
+            asyncio.run(osd.start())
+        assert osd.mesh_exec is ex and ex.covers(osd.whoami)
+        assert osd.shards.process_lanes is None
+    finally:
+        mesh_exec.disable()
 
 
 def _cluster_ctx(shards, lanes="thread", mode="force"):
@@ -741,6 +758,69 @@ def test_the_jax_package_answers_a_query_from_another_shards_copy(
     before, after, pgid = _query_ahead_of_the_map("ceph_tpu")
     assert before == [(3, pgid, "1'5", True)]
 
+
+
+def _an_info_answered_late(root):
+    """A size-3 pool of one PG on 3 OSDs, each replica answering the
+    primary's first peering query 11.5 s late (past the JAX package's
+    10 s).  Returns the ERROR records logged meanwhile, whether the PG
+    went active, and what an object written then reads back as."""
+    import logging
+
+    cluster = importlib.import_module(root + ".qa.cluster")
+    pgmod = importlib.import_module(root + ".osd.pg")
+    real = pgmod.PG.on_query
+    late = set()
+
+    def on_query(self, m):
+        if self.osd.whoami in late:
+            return real(self, m)
+        late.add(self.osd.whoami)
+        asyncio.get_running_loop().call_later(11.5, real, self, m)
+
+    errors = []
+    handler = logging.Handler(logging.ERROR)
+    handler.emit = lambda rec: errors.append(rec.getMessage())
+
+    async def run():
+        kw = {"device": "cpu"} if root == "ceph_tpu_torch" else {}
+        cl = cluster.Cluster(**kw)
+        admin = await cl.start(3)
+        for o in cl.osds.values():
+            o.ctx.log.root.addHandler(handler)
+        await admin.pool_create("p", pg_num=1, size=3)
+        io = admin.open_ioctx("p")
+        await asyncio.wait_for(io.write_full("a", b"late" * 100), 40.0)
+        got = await io.read("a", timeout=10.0)
+        active = [pg.state for o in cl.osds.values()
+                  for pg in o.pgs.values() if pg.is_primary()]
+        await cl.stop()
+        return active, got
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(pgmod.PG, "on_query", on_query)
+        active, got = asyncio.run(run())
+    return errors, active, got
+
+
+def test_peering_waits_for_an_up_peer_that_answers_late():
+    """Under the card run's load a replica's answer to a peering query
+    came more than 10 s late, and the primary failed the round with an
+    ERROR record (``no info from UP osd``) and started another.  The
+    port waits on, asking again every ``PEER_INFO_WAIT_S``, as Ceph's
+    GetInfo waits: the late answers complete the round, nothing is
+    logged at ERROR, and the PG serves the write."""
+    errors, active, got = _an_info_answered_late("ceph_tpu_torch")
+    assert errors == [] and active == ["active"] and got == b"late" * 100
+
+
+def test_the_jax_package_fails_the_round_on_a_late_peer(monkeypatch):
+    """The JAX package fails the round after 10 s (an ERROR record) and
+    peers again; the second round's answers come at once."""
+    install_ref_backoff(monkeypatch)
+    errors, active, got = _an_info_answered_late("ceph_tpu")
+    assert any("peering failed" in e for e in errors), errors
+    assert active == ["active"] and got == b"late" * 100
 
 # ------------------------------------------------------------ lazy imports
 
