@@ -13,7 +13,13 @@ striped object to coordinate size updates between writers; here a
 single-writer-per-object discipline is assumed (the common HPC use) and
 size updates are last-writer-wins — documented, not hidden.
 
-The port's copy of ``ceph_tpu.client.rados_striper``.
+The port's copy of ``ceph_tpu.client.rados_striper``, with one repair:
+on an erasure-coded pool a write patches each sub-object and rewrites it
+whole (``write_full``), one rewrite at a time per sub-object, as the RBD
+service does for images on EC pools.  EC pools refuse partial writes,
+so the reference's ``write`` fails there with -EOPNOTSUPP, and a CephFS
+data pool or a striped object cannot be erasure-coded; its ``truncate``
+already falls back to the same read and rewrite.
 """
 
 from __future__ import annotations
@@ -44,6 +50,13 @@ class RadosStriper:
     def __init__(self, ioctx, layout: Layout = DEFAULT_LAYOUT):
         self.io = ioctx
         self.layout = layout
+        # per sub-object rewrite locks on an EC pool: concurrent extent
+        # writes to one sub-object must not lose each other's bytes
+        self._obj_locks: Dict[str, asyncio.Lock] = {}
+
+    def _ec_pool(self) -> bool:
+        pool = self.io.rados.monc.osdmap.pools.get(self.io.pool_id)
+        return bool(pool and pool.is_erasure())
 
     # ------------------------------------------------------------ metadata
     async def _load_meta(self, soid: str):
@@ -78,17 +91,40 @@ class RadosStriper:
             size, layout = 0, self.layout
             await self._save_meta(soid, 0, layout)
         groups = extents_by_object(layout, offset, len(data))
+        write_obj = self._rmw_object if self._ec_pool() else \
+            self._write_extents
 
-        async def write_obj(object_no, extents):
-            for e in extents:
-                await self.io.write(_sub_oid(soid, object_no),
-                                    data[e.logical - offset:
-                                         e.logical - offset + e.length],
-                                    offset=e.offset)
-        await asyncio.gather(*[write_obj(n, ex)
+        await asyncio.gather(*[write_obj(_sub_oid(soid, n), ex, data, offset)
                                for n, ex in groups.items()])
         if offset + len(data) > size:
             await self._save_meta(soid, offset + len(data), layout)
+
+    async def _write_extents(self, oid: str, extents, data: bytes,
+                             offset: int) -> None:
+        for e in extents:
+            await self.io.write(oid, data[e.logical - offset:
+                                          e.logical - offset + e.length],
+                                offset=e.offset)
+
+    async def _rmw_object(self, oid: str, extents, data: bytes,
+                          offset: int) -> None:
+        """An EC pool stores whole objects: read the sub-object, patch
+        its extents and rewrite it, serialized per sub-object."""
+        import errno as _errno
+        async with self._obj_locks.setdefault(oid, asyncio.Lock()):
+            try:
+                cur = bytearray(await self.io.read(oid))
+            except ObjectOperationError as e:
+                if e.retcode != -_errno.ENOENT:
+                    raise
+                cur = bytearray()
+            hi = max(e.offset + e.length for e in extents)
+            if len(cur) < hi:
+                cur.extend(b"\x00" * (hi - len(cur)))
+            for e in extents:
+                cur[e.offset:e.offset + e.length] = \
+                    data[e.logical - offset:e.logical - offset + e.length]
+            await self.io.write_full(oid, bytes(cur))
 
     async def read(self, soid: str, length: int = 0,
                    offset: int = 0) -> bytes:

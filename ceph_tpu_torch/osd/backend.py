@@ -1217,8 +1217,7 @@ class ECBackend(PGBackend):
             # xattrs are replicated on every shard; size is in SIZE_XATTR
             if op.op == OP_STAT:
                 try:
-                    op.outdata = self.osd.store.getattr(pg.cid, soid,
-                                                        SIZE_XATTR)
+                    op.outdata = self._size_xattr(soid)
                     op.rval = 0
                 except (NoSuchObject, NoSuchCollection):
                     op.rval = -errno.ENOENT
@@ -1228,7 +1227,7 @@ class ECBackend(PGBackend):
             op.rval = -errno.EOPNOTSUPP
             return op.rval
         try:
-            size = int(self.osd.store.getattr(pg.cid, soid, SIZE_XATTR))
+            size = int(self._size_xattr(soid))
         except (NoSuchObject, NoSuchCollection):
             if snap:
                 # WE may be missing the clone chunk the acting set
@@ -1268,6 +1267,33 @@ class ECBackend(PGBackend):
                     and oid > pi.last_backfill:
                 out.add(i)
         return out
+
+    def _size_xattr(self, soid) -> bytes:
+        """Our shard's SIZE_XATTR.  An object that a setxattr made, with
+        no data written, has none: it reads as absent, as on MemStore,
+        on every store (the JAX package's BlockStore raises a bare
+        StoreError there, and the op fails)."""
+        attrs = self.osd.store.getattrs(self.pg.cid, soid)
+        if SIZE_XATTR not in attrs:
+            raise NoSuchObject(f"xattr {SIZE_XATTR} on {soid}")
+        return attrs[SIZE_XATTR]
+
+    def _stray_sources(self) -> List[Tuple[int, int]]:
+        """(shard, osd) pairs off the acting set that may hold a shard of
+        the PG: each member of the last peering's prior set and of every
+        past interval, for the position it held there; up OSDs only."""
+        pg = self.pg
+        seen = set()
+        pairs = list(pg._probe_shards.items())
+        for iv in pg.past_intervals:
+            pairs += [(o, pos) for pos, o in enumerate(iv.acting)]
+        for o, i in pairs:
+            if (o < 0 or o == CRUSH_ITEM_NONE or o == self.osd.whoami
+                    or not 0 <= i < len(pg.acting) or pg.acting[i] == o
+                    or not self.osd.osdmap.is_up(o)):
+                continue
+            seen.add((i, o))
+        return sorted(seen)
 
     def _auth_version(self, oid: str) -> Optional[bytes]:
         """The object's authoritative version per our log (None when the
@@ -1403,8 +1429,9 @@ class ECBackend(PGBackend):
                 candidates.append(i)
         need = self.k - len(streams)
 
-        async def ask_shard(i: int):
-            osd_id = pg.acting[i]
+        async def ask_shard(i: int, osd_id: Optional[int] = None):
+            if osd_id is None:
+                osd_id = pg.acting[i]
             tid = self.osd.next_tid()
             fut = asyncio.get_running_loop().create_future()
             self._inflight[tid] = ({osd_id}, fut)
@@ -1445,6 +1472,36 @@ class ECBackend(PGBackend):
                         shard_vers[i] = reply.attrs.get(
                             VERSION_XATTR, b"")
                     need -= 1
+            if interval_err is not None:
+                raise interval_err
+        if need > 0 and want_version is not None:
+            # an out/in can move the acting positions off the OSDs that
+            # hold the object's shards: fewer than k are left in place
+            # while the earlier holders keep theirs as strays.  Ask
+            # those, each for the shard it held, for exactly the version
+            # the log names (the role of the stray sources in Ceph's
+            # missing_loc); the JAX package asks the acting set alone,
+            # and the object stays unrecoverable for good
+            strays = [(i, o) for i, o in self._stray_sources()
+                      if i not in streams and i not in exclude]
+            replies = await asyncio.gather(
+                *[ask_shard(i, o) for i, o in strays],
+                return_exceptions=True)
+            interval_err = None
+            for r in replies:
+                if isinstance(r, PGIntervalChanged):
+                    interval_err = r
+                    continue
+                if isinstance(r, BaseException):
+                    continue
+                i, reply = r
+                if (reply.result == 0 and reply.data and i not in streams
+                        and reply.from_shard == i
+                        and reply.attrs.get(VERSION_XATTR) == want_version):
+                    streams[i] = np.frombuffer(reply.data[0], np.uint8)
+                    attrs = reply.attrs
+                    shard_attrs[i] = reply.attrs
+                    shard_vers[i] = want_version
             if interval_err is not None:
                 raise interval_err
         if len(streams) < self.k:
@@ -1740,6 +1797,9 @@ class ECBackend(PGBackend):
         # rebuild OUR clone chunks the same way (decode over the peers'
         # clone chunks); all-or-nothing — a partial rebuild must not
         # replace clones it couldn't reconstruct
+        # our SnapSet row may be missing with the object: take the acting
+        # set's before rebuilding the clones it lists
+        await self._authoritative_ss(oid)
         ssb, clones = await self._rebuild_clones(oid, my, exclude)
         if ssb is not None:
             self._txn_install_clones(txn, soid, clones)

@@ -152,7 +152,10 @@ class ECBatchQueue:
         mode=on/auto with a CPU device)."""
         chunks = np.ascontiguousarray(chunks, np.uint8)
         nbytes = chunks.shape[0] * chunks.shape[1]
-        if (not self.device_available()
+        # an empty object's chunks (a decode of an object with no data)
+        # never join a device group: a group of them alone has no lane
+        # to launch on, which fails it (on a card, its callers with it)
+        if (not self.device_available() or nbytes == 0
                 or (nbytes < self.min_device_bytes
                     and not self._pending)):
             return self._host_apply(mat, chunks, nbytes)

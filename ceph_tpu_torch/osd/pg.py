@@ -854,8 +854,10 @@ class PG:
             self._log_waiters.pop(peer, None)
         # divergent local branch? (we have entries the auth log lacks)
         if auth_info.last_update < self.info.last_update:
-            for e in self.log.rewind_to(auth_info.last_update):
+            divergent = self.log.rewind_to(auth_info.last_update)
+            for e in divergent:
                 self.missing.add(e.oid, EVersion.zero())
+            self._drop_divergent_creates(divergent, auth_log)
         if not self.info.backfill_complete or \
                 not auth_log.can_catch_up_from(self.info.last_update):
             # the auth log's window has closed over our position (or our
@@ -872,6 +874,23 @@ class PG:
         self.info.last_complete = self.info.last_update
         txn = Transaction()
         self.save_meta(txn)
+        self.osd.store.apply_transaction(txn)
+
+    def _drop_divergent_creates(self, divergent, auth_log: PGLog) -> None:
+        """Roll back to absent the objects that only the rewound entries
+        name, when the authoritative log holds the PG's whole history
+        (its tail is 0'0): no peer can hold them, so a pull would wait
+        for good.  An EC write that fewer than k shards took, rolled back
+        by peering, is one; it was never acked.  The JAX package keeps
+        them missing and retries the pull (Ceph removes a divergent
+        object whose prior version is none)."""
+        if not auth_log.can_catch_up_from(EVersion()):
+            return
+        txn = Transaction()
+        for oid in sorted({e.oid for e in divergent}):
+            if auth_log.latest_entry_for(oid) is None:
+                txn.remove(self.cid, self.object_id(oid))
+                self.missing.items.pop(oid, None)
         self.osd.store.apply_transaction(txn)
 
     async def _heal_missing(self, peer: int, epoch: int) -> None:

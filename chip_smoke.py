@@ -952,13 +952,15 @@ def lrc_shec_phase(np, kernel, dev, smi, objects):
     through encode, then decode with one data chunk lost (for LRC from
     its local group alone, fewer than k chunks), then with the most
     losses each profile repairs; every chunk bit-exact against the same
-    codec on the CPU; the apply kernel's launches counted per step."""
+    codec on the CPU (its host backend, the native apply: the same
+    chunks as K1's plain version in a tenth of the time); the apply
+    kernel's launches counted per step."""
     from ceph_tpu_torch.ec import factory
     total = sum(len(o) for o in objects)
     out = {}
     for plugin, label, prof in LRC_SHEC:
         card = factory(plugin, prof, device=dev)
-        cpu = factory(plugin, prof, device="cpu")
+        cpu = factory(plugin, dict(prof, backend="host"), device="cpu")
         k, n = card.k, card.get_chunk_count()
         everyone = set(range(n))
         local = card.minimum_to_decode({0}, everyone - {0})
@@ -2592,7 +2594,46 @@ OSD_CLS_PAGE = 16
 #: flush; "client objecter") were stated before it first ran on the card
 OSD_CLIENT_FILES, OSD_CLIENT_FILE_BYTES = 4, 16 << 20
 OSD_CACHE_OBJECTS, OSD_CACHE_WRITES = 16, 256
+#: the process-lane run's client step, cut so that the script stays near
+#: 650 s once the services step joined the thread-lane run (721 s
+#: without the cuts on an NVIDIA H100 80GB HBM3 at 700 W): two files, and
+#: the cache over four EC objects (its flush, one rewrite at a time per
+#: object, took 8.5 s of that run's 10 s step over sixteen)
+OSD_LANE_CLIENT_FILES, OSD_LANE_CACHE_OBJECTS = 2, 4
 OSD_CACHE_WRITE, OSD_CACHE_WINDOW = 16 << 10, 128 << 10
+#: the services step, run after the client step on the thread-lane run
+#: alone (``osd_phase(..., services=SERVICES)``): an RBD image on the EC
+#: pool at librbd's default order 22 (4 MiB objects), ``image_written``
+#: bytes written as object-aligned writes all in flight, then
+#: ``rmw_writes`` seeded ``rmw_bytes`` writes inside them (each a
+#: whole-object read-modify-write on EC, one K1 encode at a primary), a
+#: snapshot and ``snap_writes`` more; a journaled image of
+#: ``mirror_bytes`` on the replicated pool (the journal is omap) replayed
+#: by rbd-mirror onto a secondary on the EC pool, then ``mirror_writes``
+#: seeded writes replayed; an MDS (metadata on the replicated pool) and a
+#: CephFS client whose data pool is the EC pool at the default file
+#: layout (4 MiB objects): ``files`` files of ``file_bytes`` written,
+#: read, listed, one renamed, one unlinked; an S3 gateway on the
+#: replicated pool over loopback HTTP with SigV4, ``s3_objects`` objects
+#: of ``s3_bytes`` put, got, listed, one deleted, GC run; a mgr whose
+#: dashboard's pools and PG states must agree with ``pg dump``
+SERVICES = {"image_bytes": 256 << 20, "order": 22,
+            "image_written": 64 << 20, "rmw_writes": 64,
+            "rmw_bytes": 4 << 10, "snap_writes": 16,
+            "mirror_bytes": 16 << 20, "mirror_writes": 16,
+            "files": 4, "file_bytes": 16 << 20,
+            "s3_objects": 16, "s3_bytes": 4 << 20}
+#: stated before the step first ran on the card: gf_apply launches by part
+#: over the shard queues (the degraded reads of the services' data are a
+#: step of their own; "rebuild" replaces OSD_K1_RANGES' bound, since the
+#: recovery now moves the services' EC objects too), and crush_map
+#: launches at the Objecter while the step runs
+SERVICES_K1_RANGES = {"services rbd": (2, 32), "services rbd rmw": (16, 96),
+                      "services mirror": (4, 40),
+                      "services cephfs": (2, 32),
+                      "services degraded read": (1, 80),
+                      "rebuild": (1, 320)}
+SERVICES_D1_RANGES = {"services objecter": (0, 400)}
 #: the mesh-mode run (osd_mesh_mode=on): the same 16 OSDs on thread lanes
 #: (process lanes refuse mesh mode) with the mesh executor installed over
 #: MESH_POSITIONS positions on the card, the EC pool alone (mesh mode
@@ -2657,7 +2698,8 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
               ec_pgs=OSD_EC_PGS, rep_pgs=OSD_REP_PGS, queue_mode="auto",
               lanes="thread", mesh_positions=0,
               client_files=OSD_CLIENT_FILES,
-              client_file_bytes=OSD_CLIENT_FILE_BYTES):
+              client_file_bytes=OSD_CLIENT_FILE_BYTES,
+              cache_objects=OSD_CACHE_OBJECTS, services=None):
     """An RS k=8 m=4 pool on 16 port OSDs, written, read and recovered
     through the port's own daemons.
 
@@ -2695,7 +2737,12 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
     co-located OSDs in process, and the batch queues must launch
     nothing.  Without it, both pools get a class step and a client step
     (a striped file set on the replicated pool, a write-back cache over
-    EC objects) after the replicated read."""
+    EC objects) after the replicated read.
+
+    With ``services`` (thread lanes, both pools) a services step follows
+    the client step (``SERVICES``: RBD, rbd-mirror, CephFS, S3, mgr), and
+    the images and files it leaves are read again degraded and after
+    recovery, their EC shards held against the CPU codec's chunks."""
     import hashlib
 
     import torch
@@ -2718,10 +2765,15 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
     mesh = mesh_positions > 0
     check(not (mesh and (proc or rep_pgs)),
           "mesh mode runs on thread lanes with the EC pool alone")
+    check(not services or (not proc and not mesh and rep_pgs),
+          "the services step runs on thread lanes with both pools")
     tag = "osd-mesh" if mesh else "osd-lanes" if proc else "osd"
     d1_ranges = (OSD_MESH_D1_RANGES if mesh else OSD_LANE_D1_RANGES if proc
                  else OSD_D1_RANGES)
     k1_ranges = {} if mesh else OSD_LANE_K1_RANGES if proc else OSD_K1_RANGES
+    if services:
+        d1_ranges = dict(d1_ranges, **SERVICES_D1_RANGES)
+        k1_ranges = dict(k1_ranges, **SERVICES_K1_RANGES)
     n_obj, width = len(objects), k + m
     size = len(objects[0])
     total = n_obj * size
@@ -2776,6 +2828,8 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
              # the Objecter's placements while a step of its own runs
              "objecter_sites": {} if mesh else {"cls objecter": 0,
                                                 "client objecter": 0}}
+    if services:
+        state["objecter_sites"]["services objecter"] = 0
     queue_launches = {}    # (osd, queue index) -> launches so far
     #: (osd, lane) -> that worker's last ``lane_state``; a stopped OSD's
     #: workers keep their last one
@@ -2890,7 +2944,7 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
                     primaries += 1
         return primaries == want
 
-    def placement(pool_id):
+    def placement(pool_id, objs=None):
         """Each object's PG and acting set, on a copy of the client's map
         (lookups there prime the copy's cache on the host engine: the
         Objecter's cache and launches stay as they were)."""
@@ -2898,7 +2952,7 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
         pool = mp.pools[pool_id]
         loc = ObjectLocator(pool_id)
         res = []
-        for name in names:
+        for name in names if objs is None else objs:
             pg = pool.raw_pg_to_pg(mp.object_locator_to_pg(name, loc))
             res.append((pg, list(mp.pg_to_acting_osds(pg)[0])))
         return res
@@ -2906,8 +2960,10 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
     def rebuilt_in_place():
         from ceph_tpu_torch.store.objectstore import (NoSuchCollection,
                                                      NoSuchObject)
-        for j, ((pg, acting), (_, before)) in enumerate(
-                zip(placement(state["ec_pool"]), state["ec_place"])):
+        objs = names + sorted(state.get("svc_objects", {}))
+        for name, (pg, acting), (_, before) in zip(
+                objs, placement(state["ec_pool"], objs),
+                state["ec_place"] + state.get("svc_place", [])):
             for i in range(width):
                 if acting[i] != before[i]:
                     if acting[i] not in live:
@@ -2915,7 +2971,7 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
                     try:
                         live[acting[i]].store.stat(
                             CollectionId.pg(state["ec_pool"], pg.seed, i),
-                            ObjectId(names[j], pool=state["ec_pool"]))
+                            ObjectId(name, pool=state["ec_pool"]))
                     except (NoSuchCollection, NoSuchObject):
                         return False
         return True
@@ -3358,7 +3414,7 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
 
         # the write-back cache over EC objects
         targets = [names[(OSD_CLS_REWRITES + j) % n_obj]
-                   for j in range(min(OSD_CACHE_OBJECTS, n_obj))]
+                   for j in range(min(cache_objects, n_obj))]
         index = {name: names.index(name) for name in targets}
         locks = {}
 
@@ -3452,6 +3508,364 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
               f"{s['k1_cache']} launches at the cache's writes and flush; "
               f"crush_map {s['d1_objecter']} launches at the Objecter "
               f"(host clock); card {smi}")
+
+    async def services_step(ec_io, rep_io):
+        """The services on the cluster (``services``' sizes): an RBD image
+        on the EC pool written object-aligned (all in flight), then by
+        small seeded writes (whole-object read-modify-writes), a
+        snapshot and more writes, head and snapshot read back; a
+        journaled image on the replicated pool replayed by rbd-mirror
+        onto a secondary on the EC pool; a CephFS file set on the EC data
+        pool (metadata through an MDS on the replicated pool); an S3
+        gateway with SigV4 on the replicated pool; a mgr whose dashboard
+        agrees with ``pg dump``.  Each part's data is held against a
+        model kept here; the EC objects' contents are kept for the later
+        reads and shard checks.  Fails on any difference."""
+        from ceph_tpu_torch.client.rados_striper import DEFAULT_LAYOUT
+        from ceph_tpu_torch.services import rgw as rgw_mod
+        from ceph_tpu_torch.services.cephfs import CephFS
+        from ceph_tpu_torch.services.mds import MDS
+        from ceph_tpu_torch.services.mgr import Mgr
+        from ceph_tpu_torch.services.rbd import RBD, Image, _data_oid
+        from ceph_tpu_torch.services.rbd_mirror import ImageReplayer
+        cfg = services
+        rng = np.random.default_rng(SEED + 48)
+        enter_site("services objecter")
+        t_all = time.perf_counter()
+        svc = state["svc"] = {"objects": {}}
+        obj_size = 1 << cfg["order"]
+
+        def blob(n):
+            return rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+
+        # RBD: object-aligned writes in flight, then small RMWs
+        img_name, written = "smoke-rbd", cfg["image_written"]
+        await RBD(ec_io).create(img_name, cfg["image_bytes"],
+                                order=cfg["order"])
+        img = await Image.open(ec_io, img_name)
+        model = bytearray(blob(written))
+        await step("services rbd", [
+            img.write(off, bytes(model[off:off + obj_size]))
+            for off in range(0, written, obj_size)])
+
+        def small_writes(n, into):
+            out = []
+            for _ in range(n):
+                off = int(rng.integers(0, written - cfg["rmw_bytes"]))
+                data = blob(cfg["rmw_bytes"])
+                into[off:off + len(data)] = data
+                out.append((off, data))
+            return out
+
+        rmw = small_writes(cfg["rmw_writes"], model)
+        await step("services rbd rmw", [img.write(off, data)
+                                        for off, data in rmw])
+        t = time.perf_counter()
+        await img.snap_create("s1")
+        walls["services snap"] = time.perf_counter() - t
+        snap_model = bytes(model)
+        after = small_writes(cfg["snap_writes"], model)
+        await step("services rbd snap writes", [img.write(off, data)
+                                                for off, data in after])
+        svc["image"] = (img_name, written, bytes(model), snap_model)
+        for n in range(written // obj_size):
+            svc["objects"][_data_oid(img_name, n)] = \
+                bytes(model[n * obj_size:(n + 1) * obj_size])
+
+        # rbd-mirror: a journaled primary on the replicated pool, replayed
+        # onto a secondary on the EC pool
+        mir_name, mir_bytes = "smoke-mirror", cfg["mirror_bytes"]
+        await RBD(rep_io).create(mir_name, mir_bytes, order=cfg["order"])
+        prim = await Image.open(rep_io, mir_name, journaling=True)
+        mir_model = bytearray(blob(mir_bytes))
+        for off in range(0, mir_bytes, obj_size):
+            await prim.write(off, bytes(mir_model[off:off + obj_size]))
+        rep = ImageReplayer(rep_io, ec_io, mir_name)
+        mir_writes = []
+        for _ in range(cfg["mirror_writes"]):
+            off = int(rng.integers(0, mir_bytes - cfg["rmw_bytes"]))
+            data = blob(cfg["rmw_bytes"])
+            mir_model[off:off + len(data)] = data
+            mir_writes.append((off, data))
+        applied = []
+
+        async def mirror():
+            await rep.bootstrap()
+            applied.append(await rep.replay_once())
+            for off, data in mir_writes:
+                await prim.write(off, data)
+            applied.append(await rep.replay_once())
+
+        await step("services mirror", [mirror()])
+        check(applied[-1] == len(mir_writes),
+              f"services mirror: replayed {applied} events, "
+              f"{len(mir_writes)} written after the bootstrap")
+        svc["mirror"] = (mir_name, bytes(mir_model))
+        for n in range(mir_bytes // obj_size):
+            svc["objects"][_data_oid(mir_name, n)] = \
+                bytes(mir_model[n * obj_size:(n + 1) * obj_size])
+
+        # CephFS: an MDS over the replicated pool, data on the EC pool
+        mds_ctx = ctx_of("mds.a")
+        mds_msgr = Messenger(mds_ctx, EntityName("mds", "a"))
+        mds_addr = await mds_msgr.bind("127.0.0.1")
+        state["mds_msgr"] = mds_msgr
+        mds = MDS(mds_ctx, mds_msgr, state["admin"], "rep")
+        await mds.create_fs()
+        await mds.start()
+        fs = svc["fs"] = CephFS(state["admin"], mds_addr, "ec")
+        await fs.mkdir("/smoke")
+        files = {f"/smoke/f{i}": blob(cfg["file_bytes"])
+                 for i in range(cfg["files"])}
+        await step("services cephfs", [
+            fs.write_file(path, data) for path, data in files.items()])
+        got = await step("services cephfs read", [fs.read_file(path)
+                                                  for path in files])
+        check(got == list(files.values()),
+              "services cephfs: a file read back differs")
+        paths = list(files)
+        t = time.perf_counter()
+        await fs.rename(paths[0], "/smoke/renamed")
+        files["/smoke/renamed"] = files.pop(paths[0])
+        await fs.unlink(paths[-1])
+        del files[paths[-1]]
+        listed = await fs.listdir("/smoke")
+        walls["services cephfs namespace"] = time.perf_counter() - t
+        check(listed == sorted(p.rsplit("/", 1)[1] for p in files),
+              f"services cephfs: /smoke lists {listed}")
+        # the journal and the dirty dentries written back now: the MDS's
+        # 1 s flush timer then has nothing to write while OSDs are down
+        await mds.flush()
+        svc["files"] = dict(files)
+        for path, data in files.items():
+            ino = (await fs.stat(path))["ino"]
+            for n in range(-(-len(data) // DEFAULT_LAYOUT.object_size)):
+                svc["objects"][f"{ino:x}.{n:016x}"] = data[
+                    n * DEFAULT_LAYOUT.object_size:
+                    (n + 1) * DEFAULT_LAYOUT.object_size]
+
+        check(await prim.read(0, mir_bytes) == mir_model,
+              "services mirror: the primary differs from its model")
+        await services_read("services read", "after writing")
+
+        # S3: one user, one bucket, SigV4 over loopback HTTP
+        gw = rgw_mod.S3Gateway(state["admin"], pool="rep")
+        port = await gw.start()
+        check(gw.index_shards == int(
+            state["admin"].ctx.config["rgw_bucket_index_shards"]),
+              f"services s3: {gw.index_shards} index shards")
+        await rgw_mod.UserDB(gw.io).create("SMOKE", "SMOKESECRET")
+
+        async def s3(method, path, body=b""):
+            amz_date = time.strftime("%Y%m%dT%H%M%SZ", time.gmtime())
+            scope = f"{amz_date[:8]}/us-east-1/s3/aws4_request"
+            p, _, q = path.partition("?")
+            headers = {"host": "localhost", "x-amz-date": amz_date,
+                       "x-amz-content-sha256": rgw_mod._sha256_hex(body)}
+            signed = sorted(headers)
+            sig = rgw_mod.sign_v4("SMOKESECRET", method, p, q, headers,
+                                  signed, amz_date, scope,
+                                  headers["x-amz-content-sha256"])
+            headers["Authorization"] = (
+                f"AWS4-HMAC-SHA256 Credential=SMOKE/{scope}, "
+                f"SignedHeaders={';'.join(signed)}, Signature={sig}")
+            reader, writer = await asyncio.open_connection("127.0.0.1",
+                                                           port)
+            try:
+                lines = [f"{method} {path} HTTP/1.1",
+                         f"Content-Length: {len(body)}",
+                         "Connection: close"]
+                lines += [f"{name}: {value}"
+                          for name, value in headers.items()]
+                writer.write(("\r\n".join(lines) + "\r\n\r\n").encode()
+                             + body)
+                await writer.drain()
+                status = int((await reader.readline()).split()[1])
+                rh = {}
+                while True:
+                    h = await reader.readline()
+                    if h in (b"\r\n", b"\n", b""):
+                        break
+                    name, _, value = h.decode().partition(":")
+                    rh[name.strip().lower()] = value.strip()
+                n = int(rh.get("content-length", "0"))
+                return status, (await reader.readexactly(n) if n else b"")
+            finally:
+                writer.close()
+
+        check((await s3("PUT", "/smoke"))[0] == 200,
+              "services s3: bucket create")
+        objs = {f"obj{i:03d}": blob(cfg["s3_bytes"])
+                for i in range(cfg["s3_objects"])}
+        put = await step("services s3 put", [s3("PUT", f"/smoke/{key}", data)
+                                             for key, data in objs.items()])
+        check(all(st == 200 for st, _ in put), f"services s3: PUT {put[:1]}")
+        got = await step("services s3 get", [s3("GET", f"/smoke/{key}")
+                                             for key in objs])
+        check(got == [(200, data) for data in objs.values()],
+              "services s3: a GET differs from its PUT")
+        t = time.perf_counter()
+        st, body = await s3("GET", "/smoke")
+        keys = [part.split("</Key>")[0]
+                for part in body.decode().split("<Key>")[1:]]
+        check(st == 200 and keys == sorted(objs),
+              f"services s3: the listing gave {st} {keys[:4]}")
+        gone = sorted(objs)[0]
+        check((await s3("DELETE", f"/smoke/{gone}"))[0] == 204,
+              "services s3: DELETE")
+        check((await s3("GET", f"/smoke/{gone}"))[0] == 404,
+              "services s3: a deleted object still GETs")
+        removed = await gw.gc.process()
+        check(removed >= 1 and not await gw.gc.entries(),
+              f"services s3: gc removed {removed}")
+        walls["services s3 list delete gc"] = time.perf_counter() - t
+        await gw.stop()
+
+        # mgr: the dashboard's report against pg dump
+        t = time.perf_counter()
+        mgr = Mgr(state["admin"])
+        await mgr.start()
+        dash = mgr.get_module("dashboard")
+        while not dash.port:
+            await asyncio.sleep(0.01)
+
+        async def dashboard(path):
+            reader, writer = await asyncio.open_connection("127.0.0.1",
+                                                           dash.port)
+            writer.write(f"GET {path} HTTP/1.1\r\n\r\n".encode())
+            await writer.drain()
+            raw = await reader.read()
+            writer.close()
+            return json.loads(raw.split(b"\r\n\r\n", 1)[1])
+
+        def pg_states(dump):
+            return {pg: row["state"] for pg, row in dump["pg_stats"].items()}
+
+        for _ in range(20):
+            shown = await dashboard("/pgmap")
+            dumped = json.loads((await state["admin"].mon_command(
+                {"prefix": "pg dump"})).outs)
+            if pg_states(shown) == pg_states(dumped):
+                break
+            await asyncio.sleep(0.1)
+        check(pg_states(shown) == pg_states(dumped),
+              "services mgr: the dashboard's PG states differ from pg dump")
+        mp = state["admin"].monc.osdmap
+        pools = sorted({int(pg.split(".")[0]) for pg in pg_states(shown)})
+        check(pools == sorted(mp.pools) and len(pg_states(shown)) == sum(
+            p.pg_num for p in mp.pools.values()),
+              f"services mgr: the dashboard shows pools {pools} with "
+              f"{len(pg_states(shown))} PGs")
+        health = (await dashboard("/health"))["status"]
+        balance = await mgr.get_module("balancer").evaluate()
+        await mgr.stop()
+        walls["services mgr"] = time.perf_counter() - t
+        leave_site()
+        wall = time.perf_counter() - t_all
+        ec_names = sorted(svc["objects"])
+        state["svc_objects"] = svc["objects"]
+        state["svc_place"] = placement(state["ec_pool"], ec_names)
+        bad = sum(stored(acting[i], state["ec_pool"], pg, i, name) != want_i
+                  for name, (pg, acting) in zip(ec_names, state["svc_place"])
+                  for i, want_i in enumerate(chunk_digests(
+                      [svc["objects"][name]], k, m)[0]))
+        check(bad == 0, f"services: {bad} stored EC shards of the images "
+                        f"and files differ from the CPU codec's chunks")
+        out["services"] = {
+            "wall_s": wall, "ec_objects": len(ec_names),
+            "k1": {"services rbd": out["services rbd"]["k1"],
+                   "services rbd rmw": out["services rbd rmw"]["k1"]
+                   + out["services rbd snap writes"]["k1"],
+                   "services mirror": out["services mirror"]["k1"],
+                   "services cephfs": out["services cephfs"]["k1"]},
+            "d1_objecter": state["objecter_sites"]["services objecter"],
+            "mirror_applied": applied, "gc_removed": removed,
+            "pg_states": len(pg_states(shown)), "pools": pools,
+            "health": health, "balancer_spread": balance.get("spread")}
+        k1 = out["services"]["k1"]
+        check(k1["services rbd"] + k1["services rbd rmw"] > 0
+              and k1["services cephfs"] > 0,
+              f"services: the RBD or the CephFS part launched no gf_apply "
+              f"at the shard queues ({k1})")
+        report("services rbd", written,
+               f"; image {img_name} of {cfg['image_bytes']} B at order "
+               f"{cfg['order']} on the EC pool, {written // obj_size} "
+               f"object-aligned writes in flight")
+        report("services rbd rmw", len(rmw) * cfg["rmw_bytes"],
+               f"; {len(rmw)} writes of {cfg['rmw_bytes']} B inside them, "
+               f"each a whole-object read-modify-write")
+        report("services rbd snap writes", len(after) * cfg["rmw_bytes"],
+               f"; snapshot s1 in {walls['services snap']:.4f} s, then "
+               f"{len(after)} more writes")
+        report("services mirror", mir_bytes,
+               f"; {mir_name} ({mir_bytes} B, journaled, replicated pool) "
+               f"bootstrapped onto the EC pool, then {len(mir_writes)} "
+               f"writes replayed (events applied {applied})")
+        report("services cephfs", len(paths) * cfg["file_bytes"],
+               f"; {len(paths)} files of {cfg['file_bytes']} B through an "
+               f"MDS onto the EC data pool")
+        report("services cephfs read", len(paths) * cfg["file_bytes"],
+               f"; each equal; rename, unlink and listing "
+               f"{walls['services cephfs namespace']:.4f} s")
+        report("services s3 put", len(objs) * cfg["s3_bytes"],
+               f"; {len(objs)} objects of {cfg['s3_bytes']} B, SigV4, "
+               f"{gw.index_shards} index shard(s)")
+        report("services s3 get", len(objs) * cfg["s3_bytes"],
+               f"; each equal; list, DELETE and gc ({removed} removed) "
+               f"{walls['services s3 list delete gc']:.4f} s")
+        print(f"phase {tag} services: {wall:.4f} s in all; {len(ec_names)} "
+              f"EC objects of the image, its mirror and the files, every "
+              f"stored shard equal to the CPU codec's chunk; mgr dashboard "
+              f"agrees with pg dump on {len(pg_states(shown))} PG states "
+              f"of pools {pools} ({health}) in {walls['services mgr']:.4f} "
+              f"s; "
+              f"gf_apply by part {out['services']['k1']}; crush_map "
+              f"{out['services']['d1_objecter']} launches at the Objecter "
+              f"(host clock); card {smi}")
+
+    async def services_read(label, where):
+        """The image's head and snapshot, the mirror's secondary and the
+        files read back as one step, each against its model."""
+        from ceph_tpu_torch.services.rbd import Image
+        svc = state["svc"]
+        img_name, written, model, snap_model = svc["image"]
+        mir_name, mir_model = svc["mirror"]
+        ec_io = state["admin"].open_ioctx("ec")
+
+        async def image(name, length, snap=None):
+            return await (await Image.open(ec_io, name, snap_name=snap)
+                          ).read(0, length)
+
+        nested = "site_from" in state     # inside services_step's site
+        if not nested:
+            enter_site("services objecter")
+        got = await step(label, [
+            image(img_name, written), image(img_name, written, "s1"),
+            image(mir_name, len(mir_model)),
+            *[svc["fs"].read_file(path) for path in svc["files"]]])
+        if not nested:
+            leave_site()
+        want = [model, snap_model, mir_model, *svc["files"].values()]
+        bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+        check(not bad, f"{label}: {len(bad)} of the image, its snapshot, "
+                       f"the mirror and the files differ from their "
+                       f"models ({where})")
+        report(label, sum(len(w) for w in want),
+               f"; the image's head and snapshot, the mirror's secondary "
+               f"and {len(svc['files'])} files equal their models ({where})")
+
+    def services_shards(where):
+        """Every stored EC shard of the services' objects against the CPU
+        codec's chunk."""
+        objs = state["svc_objects"]
+        ec_names = sorted(objs)
+        bad = sum(stored(acting[i], state["ec_pool"], pg, i, name) != want_i
+                  for name, (pg, acting) in zip(
+                      ec_names, placement(state["ec_pool"], ec_names))
+                  for i, want_i in enumerate(chunk_digests(
+                      [objs[name]], k, m)[0]))
+        check(bad == 0, f"services {where}: {bad} stored EC shards differ "
+                        f"from the CPU codec's chunks")
 
     async def run():
         try:
@@ -3586,6 +4000,8 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
                 # the striped file set and the write-back cache
                 await cls_step(ec_io, rep_io)
                 await client_step(ec_io, rep_io)
+                if services:
+                    await services_step(ec_io, rep_io)
 
             # 6. stop the two OSDs holding the most EC shards; mark them
             # down: reads of objects that lost a data shard decode
@@ -3625,6 +4041,9 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
                    f"PG active again after {walls['repeer']:.4f} s, then "
                    f"{len(hit)} objects that lost a data shard read back "
                    f"equal")
+            if services:
+                await services_read("services degraded read",
+                                    f"osd.{lost[0]} and osd.{lost[1]} down")
 
             # 7. out: backfill rebuilds the lost shards elsewhere
             async def recover():
@@ -3653,6 +4072,19 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
             check(moved > 0, "no shard moved after two OSDs went out")
             check(bad == 0, f"{bad} rebuilt shards differ from the CPU "
                             f"codec's chunks")
+            if services:
+                services_shards("after recovery")
+                await services_read("services read after recovery",
+                                    "after recovery, every shard equal")
+                # D1 at the Objecter for the services' traffic: the reads
+                # after the down-mark and the out (new epochs) are bursts
+                # on placements not yet cached; in the step itself a
+                # lone op after each epoch primes the pool on the host
+                # engine first (the JAX package's scalar path, kept)
+                d1 = out["services"]["d1_objecter"] = \
+                    state["objecter_sites"]["services objecter"]
+                check(d1 > 0, "services: crush_map never ran at the "
+                              "Objecter for the services' traffic")
             if proc:
                 # every object read back after recovery, from the
                 # rebuilt shards' new homes among the rest
@@ -3693,6 +4125,8 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
                     {r["device"] for r in lane_state.values()})
             errors.check(tag)
         finally:
+            if "mds_msgr" in state:
+                await state["mds_msgr"].shutdown()
             if "admin" in state:
                 await state["admin"].shutdown()
             for o in list(live.values()):
@@ -3731,6 +4165,10 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
               "rebuild": out["recovery"]["k1"],
               "cls write": out["cls write"]["k1"],
               "client cache": out["client"]["k1_cache"]}
+        if services:
+            k1.update(out["services"]["k1"],
+                      **{"services degraded read":
+                         out["services degraded read"]["k1"]})
     out["k1_launches"] = k1
     if on_card:
         check(out["d1_wrapper"] == sum(d1.values()),
@@ -3773,6 +4211,12 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
 
 
 #: the client step's entries in the host-paths line
+#: the services step's entries there
+SERVICES_STEPS = ("services", "services rbd", "services rbd rmw",
+                  "services rbd snap writes", "services mirror",
+                  "services cephfs", "services cephfs read", "services read",
+                  "services s3 put", "services s3 get",
+                  "services degraded read", "services read after recovery")
 CLIENT_STEPS = ("client", "client files write", "client files read",
                 "client files edit", "client cache write",
                 "client cache flush")
@@ -4289,7 +4733,8 @@ def main() -> int:
     # -- phase 16: an RS k=8 m=4 pool on 16 port OSDs -------------------
     tmpdir = tempfile.mkdtemp(prefix="smoke-osd")
     try:
-        osd = osd_phase(np, kernel, dev, smi, objects, tmpdir)
+        osd = osd_phase(np, kernel, dev, smi, objects, tmpdir,
+                        services=SERVICES)
     finally:
         shutil.rmtree(tmpdir, ignore_errors=True)
     # the same on process lanes: 32 worker processes host the PGs
@@ -4297,7 +4742,9 @@ def main() -> int:
     try:
         lanes = osd_phase(np, kernel, dev, smi, objects, tmpdir,
                           ec_pgs=OSD_LANE_EC_PGS, rep_pgs=OSD_LANE_REP_PGS,
-                          lanes="process")
+                          lanes="process",
+                          client_files=OSD_LANE_CLIENT_FILES,
+                          cache_objects=OSD_LANE_CACHE_OBJECTS)
     finally:
         shutil.rmtree(tmpdir, ignore_errors=True)
     # -- phase 17: mesh mode on the same cluster's EC pool -----------------
@@ -4341,7 +4788,7 @@ def main() -> int:
                                          "rep write", "rep read", "cls",
                                          "cls write", "cls replay",
                                          "cls xattr", "cls index",
-                                         *CLIENT_STEPS,
+                                         *CLIENT_STEPS, *SERVICES_STEPS,
                                          "degraded read", "recovery",
                                          "phase_s", "lost")},
                                      "osd lanes": {key: lanes[key] for key in (

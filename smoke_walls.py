@@ -76,8 +76,10 @@ def osd_phase(tree):
                for _ in range(cs.N_OBJECTS)]
     tmp = tempfile.mkdtemp(prefix="osd-phase")
     try:
+        # a tree with the services step runs it, as its script does
+        extra = {"services": cs.SERVICES} if hasattr(cs, "SERVICES") else {}
         out = cs.osd_phase(np, kernel, torch.device("cuda"), smi, objects,
-                           tmp)
+                           tmp, **extra)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print("CMP", json.dumps({"tree": os.path.basename(tree),

@@ -2,8 +2,9 @@
 ``client/rados_striper``, ``services/striper``) against the JAX
 package's.
 
-``tests/test_client_cache.py``'s five cases without RBD (the cached RBD
-image waits for the port's ``services/rbd``) run in both packages: the
+``tests/test_client_cache.py``'s five cases without RBD run in both
+packages (the cached RBD image, its sixth, runs through
+``test_torch_rbd.both_services``, its service on a pinned clock): the
 reference test module as it is, with the repaired ``backoff``
 (``test_torch_osd.install_ref_backoff``: its cache's flusher and its
 cluster both import it), and its port reading on the CPU.  Both must
@@ -75,6 +76,11 @@ def test_client_cache_case_matches_reference(case):
         assert got[0] and got[1]          # IoCtx calls and store images
     else:
         assert got[2] and got[3]          # a backend and a cache
+
+
+def test_rbd_cached_image_writeback_matches_reference():
+    from test_torch_rbd import both_services
+    both_services("test_client_cache", "test_rbd_cached_image_writeback")
 
 
 def test_the_port_modules_are_their_own():

@@ -629,6 +629,13 @@ def test_cls_rgw_case_matches_reference(case):
     both_pinned("test_cls_rgw", case)
 
 
+def test_cls_rgw_gateway_case_matches_reference():
+    """``test_cls_rgw.py``'s gateway case, now that the port carries the
+    S3 gateway: its services on the same pinned clock and tokens."""
+    from test_torch_rbd import both_services
+    both_services("test_cls_rgw", "test_gateway_rides_cls_index")
+
+
 def test_the_cases_named_are_the_reference_files_cases():
     from test_torch_osd import cases
     assert set(cases("test_cls_misc")) == set(CLS_MISC)

@@ -1,15 +1,14 @@
 """The port's object classes on clusters of port OSDs, held against the JAX
 package's.
 
-- four cluster cases of ``tests/test_cls.py`` (``lock`` and ``rbd``'s
-  directory on a replicated pool, ``lock`` on an EC pool, ``refcount``,
-  ``journal``) run once per package with equal observations (every
-  ``IoCtx`` outcome, the stores at each cluster stop).  The file imports
-  ``ceph_tpu.services.rbd`` at module level; its port reading drops that
-  one line here (the file stays as it is) and runs only these four cases:
-  the two RBD cases wait for the port of ``services/``.  The journal case
-  drives the port's ``IoCtx`` with the JAX package's ``Journaler``, which
-  issues only ``IoCtx`` calls, since ``journal/`` is not ported yet;
+- the six cluster cases of ``tests/test_cls.py`` run once per package
+  with equal observations (every ``IoCtx`` outcome, the stores at each
+  cluster stop): ``lock`` and ``rbd``'s directory on a replicated pool,
+  ``lock`` on an EC pool, ``refcount``, ``journal`` (through each
+  package's own ``Journaler``), and the two RBD cases (the exclusive
+  lock under contending clients, the image header through ``cls rbd``),
+  whose services run on the same pinned clock and tokens
+  (``test_torch_rbd.pin_services``);
 - a class-guarded EC write on an RS k=2 m=2 pool: ``[OP_CALL version.inc
   {ver eq 0}, OP_WRITEFULL]`` on objects written before, the same guard
   again carrying the first contents (each answers -ECANCELED), the
@@ -42,6 +41,7 @@ import pytest
 from test_torch_cls import observe, pin_cls
 from test_torch_osd import (PORT, REF, TESTS, case_module, cpu_defaults,
                             install_ref_backoff, port_source, store_image)
+from test_torch_rbd import both_services
 from test_torch_osd_lanes import deadline
 
 
@@ -52,40 +52,21 @@ def _deadline():
         yield
 
 
-# ------------------------------------------------ tests/test_cls.py, in part
+# ------------------------------------------------------ tests/test_cls.py
 
 #: the cases of tests/test_cls.py that use no RBD service
 CLS_CASES = ("test_cls_lock_and_dir_replicated", "test_cls_lock_on_ec_pool",
              "test_cls_refcount_get_put_delete",
              "test_cls_journal_commit_monotonic_and_cas")
-RBD_LINE = ("from ceph_tpu_torch.services.rbd import RBD, Image, ImageBusy"
-            "  # noqa: E402\n")
-JOURNAL_LINE = "from ceph_tpu_torch.journal import Journaler"
+#: and the two that drive it
+RBD_CASES = ("test_rbd_exclusive_lock_no_lost_updates",
+             "test_rbd_header_via_cls")
 
 
 def port_test_cls():
-    """``tests/test_cls.py`` read as the port, without its import of the RBD
-    service and with the JAX package's journal client, registered where
-    ``case_module`` looks for it."""
-    modname = "_port_test_cls"
-    if modname in sys.modules:
-        return sys.modules[modname]
-    path = TESTS / "test_cls.py"
-    src = port_source(path.read_text())
-    assert src.count(RBD_LINE) == 1 and src.count(JOURNAL_LINE) == 1
-    src = src.replace(RBD_LINE, "").replace(
-        JOURNAL_LINE, "from ceph_tpu.journal import Journaler")
-    for dep in re.findall(r"^from _port_(test_\w+) import", src, re.M):
-        case_module(dep, PORT)
-    mod = types.ModuleType(modname)
-    mod.__file__ = str(path)
-    sys.modules[modname] = mod
-    try:
-        exec(compile(src, str(path), "exec"), mod.__dict__)
-    except BaseException:
-        del sys.modules[modname]
-        raise
-    return mod
+    """``tests/test_cls.py`` read as the port: its RBD service and its
+    ``Journaler`` are the port's."""
+    return case_module("test_cls", PORT)
 
 
 @pytest.mark.parametrize("case", CLS_CASES)
@@ -97,12 +78,22 @@ def test_cls_case_matches_reference(case):
     assert got[1] == want[1]
 
 
+@pytest.mark.parametrize("case", RBD_CASES)
+def test_cls_rbd_case_matches_reference(case):
+    both_services("test_cls", case)
+
+
 def test_the_port_reading_of_test_cls_leaves_out_only_the_rbd_cases():
+    """The port reading of ``tests/test_cls.py`` is the whole file now
+    that the port carries the RBD service and the journal: its cases are
+    the four class cases and the two RBD cases above, and they run the
+    port's ``RBD`` and ``Journaler``."""
     mod = port_test_cls()
     names = {n for n in vars(mod) if n.startswith("test_")}
-    assert names - set(CLS_CASES) == {"test_rbd_exclusive_lock_no_lost_updates",
-                                      "test_rbd_header_via_cls"}
-    assert "RBD" not in vars(mod)
+    assert names == set(CLS_CASES) | set(RBD_CASES)
+    assert mod.RBD.__module__ == PORT + ".services.rbd"
+    src = port_source((TESTS / "test_cls.py").read_text())
+    assert src.count("from ceph_tpu_torch.journal import Journaler") == 1
 
 
 # ------------------------------------------------- the guarded EC write

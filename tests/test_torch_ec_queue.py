@@ -224,6 +224,32 @@ def test_device_failure_off_the_cpu_reaches_callers(monkeypatch):
     asyncio.run(run())
 
 
+def test_an_empty_request_takes_the_host_path():
+    """The chunks of an object with no data (an RBD header, a striped
+    file's head on an EC pool) take the host path even while other
+    requests are pending: a group of them alone has no lane to launch
+    on.  Fails on a queue that lets them join the device batch: their
+    group fails (on the CPU, a warning and the host fallback; on a card
+    an ERROR and the callers' failure)."""
+    async def run():
+        q = make_queue(min_device_bytes=256)
+        failed = []
+        real = q.logger.warning
+        q.logger.warning = lambda msg, *a: (failed.append(msg),
+                                            real(msg, *a))
+        m1, m2 = gen_mat(4, 2), gen_mat(2, 1)
+        c1 = np.arange(4 * 3000, dtype=np.uint8).reshape(4, -1)
+        empty = np.zeros((2, 0), np.uint8)
+        o1, o2 = await asyncio.gather(q.apply(m1, c1), q.apply(m2, empty))
+        assert np.array_equal(o1, ref_gf256.host_apply(m1, c1))
+        assert o2.shape == (1, 0)
+        d = q.perf.dump()
+        assert d["device_requests"] == 1 and d["host_requests"] == 1
+        assert not failed, failed
+        await q.stop()
+    asyncio.run(run())
+
+
 def test_group_steps_are_timed():
     async def run():
         q = make_queue(min_device_bytes=256)

@@ -52,6 +52,13 @@ SLICE13 = ("parallel/__init__.py", "parallel/layout.py",
            "services/striper.py", "client/object_cacher.py",
            "client/rados_striper.py", "qa/rados_model.py")
 
+#: the journal, the services and utils/
+SLICE14 = ("journal/__init__.py", "journal/journaler.py",
+           *(f"services/{m}.py" for m in (
+               "rbd", "rbd_mirror", "mds", "cephfs", "mgr", "rgw_usage",
+               "rgw_gc", "rgw", "rgw_sync")),
+           "utils/__init__.py")
+
 
 def _sources():
     out = [os.path.join(ROOT, "chip_smoke.py"),
@@ -85,7 +92,8 @@ def test_sources_exist():
                 "common/encoding.py", "native/__init__.py", "ec/lrc.py",
                 "ec/shec.py", "crush/compiler.py", "tools/crushtool.py",
                 "tools/psim.py", "common/crc.py", "common/xxhash.py",
-                *SLICE6, *SLICE7, *SLICE8, *SLICE12, *SLICE13):
+                *SLICE6, *SLICE7, *SLICE8, *SLICE12, *SLICE13,
+                *SLICE14):
         assert os.path.join(ROOT, "ceph_tpu_torch", mod) in srcs, mod
 
 
@@ -248,8 +256,8 @@ def test_slice13_modules_mirror_the_reference_and_import_alone():
     """Mesh mode (parallel/), the striper service, the write-back cache,
     the striped client and the model checker sit at their reference's
     paths; importing them in a fresh interpreter loads neither JAX nor
-    the JAX package, and the services package exports the striper
-    alone (the reference's also exports rbd, not ported yet)."""
+    the JAX package, and the services package exports the striper's
+    names among the reference's."""
     for mod in SLICE13:
         assert os.path.exists(os.path.join(ROOT, "ceph_tpu", mod)), mod
     code = ("import sys\n"
@@ -259,8 +267,41 @@ def test_slice13_modules_mirror_the_reference_and_import_alone():
             "import ceph_tpu_torch.client.object_cacher\n"
             "import ceph_tpu_torch.client.rados_striper\n"
             "import ceph_tpu_torch.qa.rados_model\n"
-            "assert sorted(services.__all__) == ['Extent', 'Layout', "
-            "'extents_by_object', 'file_to_extents']\n"
+            "assert {'Extent', 'Layout', 'extents_by_object', "
+            "'file_to_extents'} <= set(services.__all__)\n"
+            "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+            "('jax', 'jaxlib', 'ceph_tpu'))\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_slice14_modules_mirror_the_reference_and_import_alone():
+    """The journal, every service module and utils/ sit at their
+    reference's paths, which hold nothing more; importing them in a
+    fresh interpreter loads neither JAX nor the JAX package, and the
+    services package exports the reference's names."""
+    for sub in ("journal", "services", "utils"):
+        ref = sorted(f for f in os.listdir(os.path.join(ROOT, "ceph_tpu",
+                                                        sub))
+                     if f.endswith(".py"))
+        port = sorted(f for f in os.listdir(os.path.join(
+            ROOT, "ceph_tpu_torch", sub)) if f.endswith(".py"))
+        assert port == ref, sub
+    for mod in SLICE14:
+        assert os.path.exists(os.path.join(ROOT, "ceph_tpu", mod)), mod
+    code = ("import sys\n"
+            "import ceph_tpu_torch.journal, ceph_tpu_torch.utils\n"
+            "import ceph_tpu_torch.services as services\n"
+            + "".join(f"import ceph_tpu_torch.services.{m}\n" for m in (
+                "rbd", "rbd_mirror", "mds", "cephfs", "mgr", "rgw_usage",
+                "rgw_gc", "rgw", "rgw_sync"))
+            + "assert services.__all__ == ['RBD', 'Image', 'ImageExists', "
+            "'ImageNotFound', 'Extent', 'Layout', 'extents_by_object', "
+            "'file_to_extents'], services.__all__\n"
             "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
             "('jax', 'jaxlib', 'ceph_tpu'))\n"
             "print(bad)\n"

@@ -93,13 +93,14 @@ def test_object_model_matches_the_reference(seed):
     assert run(ObjectModel) == run(RefModel)
 
 
-def _write_only_the_primary_applied(root):
+def _write_only_the_primary_applied(root, create=False, timeout=20.0):
     """An RS k=2 m=2 pool of one PG on 5 OSDs: "a" written whole, then
     rewritten while every replica drops the rewrite's sub-op (as a
     replica already in the next interval drops a stale one), the client
     giving up; then a replica is marked down (a new interval, re-peered
     without the drops).  Returns what reading "a" gives: its first or its
-    second contents, or the error."""
+    second contents, or the error.  With ``create`` the dropped write is
+    the one that makes "a" ("b" is written first instead)."""
     import asyncio
     import importlib
     cluster = importlib.import_module(root + ".qa.cluster")
@@ -120,7 +121,7 @@ def _write_only_the_primary_applied(root):
                                 k=2, m=2)
         io = admin.open_ioctx("ec")
         first, second = b"1" * 3000, b"2" * 3000
-        await io.write_full("a", first)
+        await io.write_full("b" if create else "a", first)
         dropping["on"] = True
         t = asyncio.get_running_loop().create_task(io.write_full("a",
                                                                  second))
@@ -135,9 +136,11 @@ def _write_only_the_primary_applied(root):
         acting = m.pg_to_up_acting_osds(pg)[2]
         await cl.mark_down_and_wait(admin, acting[1])
         try:
-            got = await io.read("a", timeout=20.0)
+            got = await io.read("a", timeout=timeout)
         except Exception as e:        # noqa: BLE001 - the outcome
-            got = type(e).__name__
+            got = (type(e).__name__, getattr(e, "retcode", None))
+        if create:
+            got = (got, await io.read("b", timeout=timeout) == first)
         await cl.stop()
         return {first: "first", second: "second"}.get(got, got)
 
@@ -164,6 +167,27 @@ def test_the_jax_package_keeps_an_ec_write_only_the_primary_took():
         test_torch_osd.install_ref_backoff(mp)
         got = _write_only_the_primary_applied(REF)
     assert got not in ("first", "second"), got
+
+
+def test_an_ec_create_no_replica_took_rolls_back_to_absent():
+    """The same with a write that creates "a": the rollback removes the
+    primary's lone copy, the PG peers, and "a" reads as absent.  Fails on
+    a rollback that keeps "a" missing: no peer holds it, the primary's
+    pull fails on every peering retry and the read times out."""
+    import errno
+    with pytest.MonkeyPatch.context() as mp:
+        cpu_defaults(mp)
+        got = _write_only_the_primary_applied(PORT, create=True,
+                                              timeout=10.0)
+    assert got == (("ObjectOperationError", -errno.ENOENT), True)
+
+
+def test_the_jax_package_cannot_read_an_ec_create_only_the_primary_took():
+    import test_torch_osd
+    with pytest.MonkeyPatch.context() as mp:
+        test_torch_osd.install_ref_backoff(mp)
+        got = _write_only_the_primary_applied(REF, create=True, timeout=5.0)
+    assert got[0][0] != "ObjectOperationError" or got[0][1] != -2, got
 
 
 def test_an_acked_ec_write_survives_its_shards_going_down():
@@ -302,3 +326,112 @@ def test_an_interval_walk_folds_a_pg_made_by_a_split():
         got, want, split, n = asyncio.run(run())
     assert n == 4 and split, (n, split)
     assert got == want
+
+
+def _shards_moved_off_their_holders(root, snap=False, timeout=12.0):
+    """An RS k=2 m=2 pool of one PG on 8 OSDs: "a" written on its acting
+    set, then three of its four OSDs (the primary among them) marked out
+    while they stay up.  CRUSH's indep rule moves only those positions,
+    so one shard of "a" is left in place and the three others are held
+    by strays; the new primary has nothing.  Returns what a read of "a"
+    gave (the data, or the error's name), with the acting set before and
+    the up set after.  With ``snap`` "a" is first written, snapshotted
+    and overwritten (each shard clones its chunk), and the read is of
+    the snapshot: the first contents, or the error's name."""
+    import asyncio
+    import importlib
+
+    cluster = importlib.import_module(root + ".qa.cluster")
+    types_ = importlib.import_module(root + ".osd.types")
+
+    def ctx(name):
+        # no false down marks under a loaded host: an OSD marked down
+        # boots again and is marked in, undoing the outs
+        c = cluster.make_ctx(name)
+        c.config.set("osd_heartbeat_grace", 30.0)
+        return c
+
+    async def run():
+        cl = cluster.Cluster(ctx_factory=ctx)
+        admin = await cl.start(8)
+        await admin.pool_create("ec", pg_num=1, pool_type="erasure",
+                                k=2, m=2)
+        io = admin.open_ioctx("ec")
+        data = bytes(range(256)) * 12
+        await io.write_full("a", data)
+        if snap:
+            sid = await io.selfmanaged_snap_create()
+            io.set_write_snapc(sid, [sid])
+            await io.write_full("a", b"2" * 5000)
+            io.set_snap_read(sid)
+        m = admin.monc.osdmap
+        pid = m.lookup_pool("ec")
+        pg = m.pools[pid].raw_pg_to_pg(
+            m.object_locator_to_pg("a", types_.ObjectLocator(pid)))
+        acting = m.pg_to_up_acting_osds(pg)[2]
+        moved = [acting[0], acting[2], acting[3]]
+        await asyncio.gather(*[admin.mon_command(
+            {"prefix": "osd out", "id": o}) for o in moved])
+        for _ in range(600):          # the client's map has all three out
+            if not set(admin.monc.osdmap.pg_to_up_acting_osds(pg)[0]) \
+                    & set(moved):
+                break
+            await asyncio.sleep(0.05)
+        if snap:
+            # the snapshot is read once backfill is done: no pg_temp
+            # keeps the strays in the acting set any more
+            for _ in range(200):
+                up, _, acting_now, _ = \
+                    admin.monc.osdmap.pg_to_up_acting_osds(pg)
+                if acting_now == up and not set(up) & set(moved):
+                    break
+                await asyncio.sleep(0.1)
+            await asyncio.sleep(1.0)
+        try:
+            got = await io.read("a", timeout=timeout)
+        except Exception as e:        # noqa: BLE001 - the outcome
+            got = type(e).__name__
+        after = admin.monc.osdmap.pg_to_up_acting_osds(pg)[0]
+        await cl.stop()
+        return acting, after, got == data or got
+
+    return asyncio.run(run())
+
+
+def test_a_shard_held_only_by_a_stray_feeds_the_rebuild():
+    """The new primary rebuilds its shard of "a" from the one shard left
+    in place and a stray's (the sources that peering probed), and the
+    read returns the data.  Fails on a gather that asks the acting set
+    alone: one shard of the two needed, peering retries for good and
+    the read times out."""
+    with pytest.MonkeyPatch.context() as mp:
+        cpu_defaults(mp)
+        before, after, read = _shards_moved_off_their_holders(PORT)
+    assert after[1] == before[1] and not set(after) & {
+        before[0], before[2], before[3]}
+    assert read is True
+
+
+def test_a_snapshot_held_only_by_strays_reads_back():
+    """The same after a snapshot and an overwrite, read once backfill is
+    done: the new primary, rebuilding the head from the strays, takes the
+    object's SnapSet row from the acting set before it rebuilds the
+    clones, and a read at the snapshot returns the first contents.  Fails
+    when the primary rebuilds clones from its own row alone: it has none,
+    so it rebuilds none, and the snapshot read fails."""
+    with pytest.MonkeyPatch.context() as mp:
+        cpu_defaults(mp)
+        before, after, read = _shards_moved_off_their_holders(PORT,
+                                                               snap=True)
+    assert after[1] == before[1]
+    assert read is True
+
+
+def test_the_jax_package_asks_the_acting_set_alone():
+    import test_torch_osd
+    with pytest.MonkeyPatch.context() as mp:
+        test_torch_osd.install_ref_backoff(mp)
+        before, after, read = _shards_moved_off_their_holders(REF,
+                                                               timeout=5.0)
+    assert after[1] == before[1]
+    assert read is not True
