@@ -7,7 +7,29 @@
 //   * gf_apply_checksum <- _pallas_probe_sum, the variant tuner's probe: the
 //                          same apply with the output summed on the device as
 //                          a wrapped int32, so one scalar crosses to the host.
-// Both compute the same bytes as the TPU kernels by another method.
+// Both compute the same bytes as the TPU kernels by another method.  A third
+// entry, gf_apply_segments, is the device half of the mesh steps:
+//   * gf_apply_segments <- the jitted shard_map programs of
+//                          ceph_tpu/parallel/layout.py (ec_cluster_step :65,
+//                          ec_recover_step :101) and mesh_exec.py
+//                          (_mesh_recover_fn :58, _mesh_encode_fn :86): an
+//                          all_gather, a vmap of _apply_bitmatrix, and a psum
+//                          of per-row byte sums, each one XLA program per step.
+//   It applies one matrix to up to 32 segments in one launch; a segment is
+//   a strided [stripes, rows, lanes] view whose k input rows may lie in
+//   several blocks (a mesh position's block each), with its own length.  So
+//   the gather along a mesh axis becomes addresses in the launch's
+//   parameters, and no block is copied to line the rows up.  Per-row sums of
+//   the output bytes (the steps' scrub, jnp.sum(uint32) under psum, the
+//   same value mod 2^32) come from an epilogue of atomicAdds.
+//   Bound: bytes, as gf_apply: each input byte read once and each output byte
+//   written once; a move between positions on one card moves nothing.
+//   Design: K1's inner loop and load ring, fed by a row walker over the
+//   segment's blocks; the descriptors travel by value in the launch's
+//   parameter space (__grid_constant__, 3.6 KB: 32 segments, 64 input
+//   blocks), so a launch uploads nothing.  The wrapper (ec/kernel.py
+//   gf_apply_segments) splits more segments or blocks over several
+//   launches; a segment of more than 64 blocks is refused.
 //
 // Bound: bytes.  gf_apply reads k*L bytes and writes r*L bytes, (k + r)*L in
 // all, and does a few table lookups per byte.  For the k=8, m=4 encode window
@@ -145,26 +167,38 @@ __device__ __forceinline__ void row_products(uint32_t (&acc)[kMaxRows][kLanes / 
   }
 }
 
+// A thread's k input rows at a constant stride, in order: K1's operand.
+// next() returns row j's address at the thread's first lane, j = 0, 1, ...
+struct StridedRows {
+  const uint8_t* p;
+  long long ld;
+  __device__ __forceinline__ const uint8_t* next() {
+    const uint8_t* row = p;
+    p += ld;
+    return row;
+  }
+};
+
 // The k input rows of a thread whose lanes are all below L and whose rows
-// are 16-byte aligned.  A ring of kStages rows per thread in shared memory
-// keeps kStages - 1 rows of 16-byte cp.async loads in flight while a row's
-// lookups issue: with about a thousand threads per SM, one row each would be
-// 16 KB in flight, under what HBM's latency asks for.  A thread reads only
-// the ring slots it filled, so no barrier is needed.
-template <int kThreads, int kLanes, int kMaxRows>
+// are 16-byte aligned; `rows` walks them in order.  A ring of kStages rows
+// per thread in shared memory keeps kStages - 1 rows of 16-byte cp.async
+// loads in flight while a row's lookups issue: with about a thousand
+// threads per SM, one row each would be 16 KB in flight, under what HBM's
+// latency asks for.  A thread reads only the ring slots it filled, so no
+// barrier is needed.
+template <int kThreads, int kLanes, int kMaxRows, class Rows>
 __device__ __forceinline__ void accumulate_ring(uint32_t (&acc)[kMaxRows][kLanes / 4],
                                                 const uint8_t* tables, int rt, int k,
-                                                const uint8_t* __restrict__ data,
-                                                long long ld_data, long long lane0) {
+                                                Rows& rows) {
   constexpr int kVecs = kLanes / 16;
   __shared__ uint4 ring[kStages][kVecs][kThreads];
-  const uint8_t* p = data + lane0;
   const int t = threadIdx.x;
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < k) {
+      const uint8_t* p = rows.next();
 #pragma unroll
-      for (int v = 0; v < kVecs; ++v) cp_async16(&ring[s][v][t], p + s * ld_data + 16 * v);
+      for (int v = 0; v < kVecs; ++v) cp_async16(&ring[s][v][t], p + 16 * v);
     }
     cp_async_commit();
   }
@@ -172,10 +206,9 @@ __device__ __forceinline__ void accumulate_ring(uint32_t (&acc)[kMaxRows][kLanes
   for (int j = 0; j < k; ++j) {
     const int ahead = j + kStages - 1;
     if (ahead < k) {
+      const uint8_t* p = rows.next();
 #pragma unroll
-      for (int v = 0; v < kVecs; ++v) {
-        cp_async16(&ring[ahead % kStages][v][t], p + ahead * ld_data + 16 * v);
-      }
+      for (int v = 0; v < kVecs; ++v) cp_async16(&ring[ahead % kStages][v][t], p + 16 * v);
     }
     cp_async_commit();
     cp_async_wait<kStages - 1>();          // row j has landed
@@ -191,16 +224,14 @@ __device__ __forceinline__ void accumulate_ring(uint32_t (&acc)[kMaxRows][kLanes
 
 // The k input rows by byte loads masked at L: the ragged tail, and rows that
 // are not 16-byte aligned.
-template <int kLanes, int kMaxRows>
+template <int kLanes, int kMaxRows, class Rows>
 __device__ __forceinline__ void accumulate_bytes(uint32_t (&acc)[kMaxRows][kLanes / 4],
                                                  const uint8_t* tables, int rt, int k,
-                                                 const uint8_t* __restrict__ data,
-                                                 long long ld_data, long long lane0,
-                                                 long long L) {
+                                                 Rows& rows, long long lane0, long long L) {
   constexpr int kWords = kLanes / 4;
 #pragma unroll 1
   for (int j = 0; j < k; ++j) {
-    const uint8_t* p = data + j * ld_data + lane0;
+    const uint8_t* p = rows.next();
     uint32_t x[kWords];
 #pragma unroll
     for (int w = 0; w < kWords; ++w) x[w] = 0;
@@ -243,10 +274,11 @@ gf_apply_kernel(const uint8_t* __restrict__ tables, int r, int k,
 
   const uint8_t* tab = reinterpret_cast<const uint8_t*>(smem);
   if (active) {
+    StridedRows rows{data + lane0, ld_data};
     if (kVec && full) {
-      accumulate_ring<kThreads, kLanes, kMaxRows>(acc, tab, rt, k, data, ld_data, lane0);
+      accumulate_ring<kThreads, kLanes, kMaxRows>(acc, tab, rt, k, rows);
     } else {
-      accumulate_bytes<kLanes, kMaxRows>(acc, tab, rt, k, data, ld_data, lane0, L);
+      accumulate_bytes<kLanes, kMaxRows>(acc, tab, rt, k, rows, lane0, L);
     }
   }
 
@@ -336,6 +368,169 @@ int dispatch(int threads, int lanes, int rows, const void* tables, int r, int k,
   return static_cast<int>(cudaErrorInvalidValue);   // not a built variant
 }
 
+// ---------------------------------------------------------------- segments
+//
+// gf_apply_segments: one launch of the apply over up to kMaxSegments
+// segments.  A segment is `stripes` stripes of `lanes` lanes; its k input
+// rows lie in 1..k input blocks, each [stripes, rows, lanes] at (ptr, row
+// stride, stripe stride), its r output rows in one such block.  Work item
+// w of the launch is (segment, stripe), in segment order; blockIdx.z walks
+// the work items, blockIdx.x the lane tiles, blockIdx.y the row tiles.
+
+constexpr int kMaxSegments = 32;
+constexpr int kMaxInputs = 64;
+constexpr int kSegVec = 1;                 // every address and stride 16-byte aligned
+constexpr int kSegSum = 2;                 // the segment's bytes go into the row sums
+
+struct GfBlock {                           // one input block, 32 bytes
+  const uint8_t* ptr;                      // row 0, stripe 0, lane 0
+  long long row;                           // bytes between rows
+  long long stripe;                        // bytes between stripes
+  int rows;
+  int pad;
+};
+
+struct GfSegment {                         // 48 bytes
+  uint8_t* out;                            // output row 0, stripe 0, lane 0
+  long long out_row;
+  long long out_stripe;
+  int lanes;
+  int stripes;
+  int first;                               // its first work item
+  int in0;                                 // its first input block
+  int nin;                                 // its input blocks
+  int flags;                               // kSegVec | kSegSum
+};
+
+struct GfSegmentLaunch {                   // 3,592 bytes of parameter space
+  GfSegment seg[kMaxSegments];
+  GfBlock in[kMaxInputs];
+  int nseg;
+  int work;                                // work items: the sum of stripes
+};
+
+// A segment's k input rows at one stripe, in order across its blocks.
+struct BlockRows {
+  const GfBlock* blk;                      // the current block, in parameter space
+  long long lane0;                         // the thread's first lane
+  int stripe;
+  int left;                                // rows of blk still to walk
+  const uint8_t* p;
+  long long ld;
+  __device__ __forceinline__ void open() {
+    p = blk->ptr + stripe * blk->stripe + lane0;
+    ld = blk->row;
+    left = blk->rows;
+  }
+  __device__ __forceinline__ const uint8_t* next() {
+    if (left == 0) {
+      ++blk;
+      open();
+    }
+    const uint8_t* row = p;
+    p += ld;
+    --left;
+    return row;
+  }
+};
+
+template <int kThreads, int kLanes, int kMaxRows>
+__global__ void __launch_bounds__(kThreads)
+gf_segments_kernel(const uint8_t* __restrict__ tables, int r, int k, int rows_per_tile,
+                   uint32_t* __restrict__ sums, int sum_stride,
+                   const __grid_constant__ GfSegmentLaunch launch) {
+  constexpr int kWords = kLanes / 4;
+  constexpr int kWarps = kThreads / 32;
+  extern __shared__ uint4 smem[];          // [rt][k][32 bytes] tables of this tile
+  __shared__ uint32_t warp_sums[kMaxRows][kWarps];
+  const int r0 = blockIdx.y * rows_per_tile;
+  const int rt = min(rows_per_tile, r - r0);
+  const int nvec = rt * k * (kTableBytes / 16);
+  const uint4* src = reinterpret_cast<const uint4*>(tables) +
+                     static_cast<size_t>(r0) * k * (kTableBytes / 16);
+  for (int i = threadIdx.x; i < nvec; i += kThreads) smem[i] = src[i];
+  __syncthreads();
+  const uint8_t* tab = reinterpret_cast<const uint8_t*>(smem);
+  const long long tile0 = static_cast<long long>(blockIdx.x) * kThreads * kLanes;
+  const long long lane0 = tile0 + static_cast<long long>(threadIdx.x) * kLanes;
+
+#pragma unroll 1
+  for (int w = blockIdx.z; w < launch.work; w += gridDim.z) {
+    int s = 0;
+    while (s + 1 < launch.nseg && launch.seg[s + 1].first <= w) ++s;
+    const GfSegment& sg = launch.seg[s];
+    const long long L = sg.lanes;
+    if (tile0 >= L) continue;              // the whole block is past this segment
+    const int stripe = w - sg.first;
+    const bool active = lane0 < L;
+    const bool full = lane0 + kLanes <= L;
+    const bool vec = (sg.flags & kSegVec) != 0;
+
+    uint32_t acc[kMaxRows][kWords];
+#pragma unroll
+    for (int i = 0; i < kMaxRows; ++i) {
+#pragma unroll
+      for (int q = 0; q < kWords; ++q) acc[i][q] = 0;
+    }
+    if (active) {
+      BlockRows rows{&launch.in[sg.in0], lane0, stripe, 0, nullptr, 0};
+      rows.open();
+      if (vec && full) {
+        accumulate_ring<kThreads, kLanes, kMaxRows>(acc, tab, rt, k, rows);
+      } else {
+        accumulate_bytes<kLanes, kMaxRows>(acc, tab, rt, k, rows, lane0, L);
+      }
+#pragma unroll
+      for (int i = 0; i < kMaxRows; ++i) {
+        if (i < rt) {
+          uint8_t* q = sg.out + (r0 + i) * sg.out_row + stripe * sg.out_stripe + lane0;
+          uint32_t o[kWords];
+#pragma unroll
+          for (int c = 0; c < kWords; ++c) o[c] = prmt(acc[i][c], 0u, 0x3120);
+          if (vec && full) {
+#pragma unroll
+            for (int v = 0; v < kWords / 4; ++v) {
+              reinterpret_cast<uint4*>(q)[v] =
+                  make_uint4(o[4 * v], o[4 * v + 1], o[4 * v + 2], o[4 * v + 3]);
+            }
+          } else {
+            for (int b = 0; b < kLanes; ++b) {
+              if (lane0 + b < L) q[b] = static_cast<uint8_t>(o[b >> 2] >> (8 * (b & 3)));
+            }
+          }
+        }
+      }
+    }
+    if (sums != nullptr && (sg.flags & kSegSum) != 0) {
+      // per output row: each thread's bytes, the warp by shuffles, the block
+      // through shared memory, one atomicAdd per row and block.  Lanes past
+      // L loaded zeros and c * 0 = 0, so they add nothing.
+#pragma unroll
+      for (int i = 0; i < kMaxRows; ++i) {
+        uint32_t t = 0;
+#pragma unroll
+        for (int c = 0; c < kWords; ++c) t += __vsadu4(acc[i][c], 0u);
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) t += __shfl_xor_sync(0xffffffffu, t, off);
+        if ((threadIdx.x & 31) == 0) warp_sums[i][threadIdx.x >> 5] = t;
+      }
+      __syncthreads();
+      if (threadIdx.x < rt) {
+        uint32_t total = 0;
+#pragma unroll
+        for (int q = 0; q < kWarps; ++q) total += warp_sums[threadIdx.x][q];
+        atomicAdd(sums + static_cast<long long>(r0 + threadIdx.x) * sum_stride, total);
+      }
+      __syncthreads();                     // warp_sums is reused by the next item
+    }
+  }
+}
+
+// The segments kernel's one variant: K1's champion (threads, lanes, rows).
+constexpr int kSegThreads = 128;
+constexpr int kSegLanes = 16;
+constexpr int kSegRows = 4;
+
 }  // namespace
 
 // Launches variant (threads, lanes, rows) on `stream` and returns
@@ -365,6 +560,82 @@ extern "C" int gf_apply_checksum(const void* tables, int r, int k, const void* d
   if (L == 0) return 0;
   return dispatch<true>(threads, lanes, rows, tables, r, k, data, ld_data, nullptr,
                         0, L, static_cast<uint32_t*>(sum), s);
+}
+
+// Launches the segments kernel on `stream` and returns cudaGetLastError()
+// (0 on success), or cudaErrorInvalidValue for a launch it does not take.
+// tables: [r][k][32] device bytes (ec/kernel.py prmt_tables).  segs: nseg
+// host records of 8 int64 (out, out row stride, out stripe stride, lanes,
+// stripes, first input block, input blocks, sum flag); blocks: nblocks
+// host records of 4 int64 (ptr, row stride, stripe stride, rows).  Every
+// segment has at least one stripe and one lane, and its blocks' rows add
+// up to k.  sums: r uint32 counters sum_stride apart (a uint32 sum in the
+// low word of an int64 is sum_stride 2), or null for no sums; with
+// zero_sums the r * sum_stride words from sums are zeroed first.  A
+// segment's sum flag adds its output bytes into the counters: row i's
+// counter gains the bytes of output row i of every stripe, mod 2^32.
+extern "C" int gf_apply_segments(const void* tables, int r, int k, const long long* segs,
+                                 int nseg, const long long* blocks, int nblocks, void* sums,
+                                 int sum_stride, int zero_sums, void* stream) {
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
+  if (r < 1 || k < 1 || r + k > 255) return bad;
+  if (nseg < 0 || nseg > kMaxSegments || nblocks < 0 || nblocks > kMaxInputs) return bad;
+  auto st = static_cast<cudaStream_t>(stream);
+  auto* sum = static_cast<uint32_t*>(sums);
+  if (sum != nullptr && sum_stride < 1) return bad;
+  if (sum != nullptr && zero_sums) {
+    const cudaError_t z =
+        cudaMemsetAsync(sum, 0, static_cast<size_t>(r) * sum_stride * sizeof(uint32_t), st);
+    if (z != cudaSuccess) return static_cast<int>(z);
+  }
+  if (nseg == 0) return 0;
+  GfSegmentLaunch p{};
+  for (int b = 0; b < nblocks; ++b) {
+    const long long* q = blocks + 4 * b;
+    p.in[b] = GfBlock{reinterpret_cast<const uint8_t*>(static_cast<uintptr_t>(q[0])), q[1],
+                      q[2], static_cast<int>(q[3]), 0};
+    if (q[3] < 1 || q[3] > k) return bad;
+  }
+  long long work = 0, max_lanes = 0;
+  for (int s = 0; s < nseg; ++s) {
+    const long long* q = segs + 8 * s;
+    const long long lanes = q[3], stripes = q[4], in0 = q[5], nin = q[6];
+    if (lanes < 1 || lanes > 0x7fffffffLL || stripes < 1 || nin < 1 || in0 < 0 ||
+        in0 + nin > nblocks)
+      return bad;
+    int rows = 0;
+    bool vec = q[0] % 16 == 0 && q[1] % 16 == 0 && q[2] % 16 == 0;
+    for (long long b = in0; b < in0 + nin; ++b) {
+      rows += p.in[b].rows;
+      vec = vec && reinterpret_cast<uintptr_t>(p.in[b].ptr) % 16 == 0 &&
+            p.in[b].row % 16 == 0 && p.in[b].stripe % 16 == 0;
+    }
+    if (rows != k) return bad;
+    p.seg[s] = GfSegment{reinterpret_cast<uint8_t*>(static_cast<uintptr_t>(q[0])), q[1], q[2],
+                         static_cast<int>(lanes), static_cast<int>(stripes),
+                         static_cast<int>(work), static_cast<int>(in0), static_cast<int>(nin),
+                         (vec ? kSegVec : 0) | (q[7] ? kSegSum : 0)};
+    work += stripes;
+    if (lanes > max_lanes) max_lanes = lanes;
+  }
+  if (work > 0x7fffffffLL) return bad;
+  p.nseg = nseg;
+  p.work = static_cast<int>(work);
+
+  constexpr int kStatic =
+      kStages * kSegThreads * kSegLanes + kSegRows * (kSegThreads / 32) * 4;
+  int rows = (kSmemLimit - kStatic) / (k * kTableBytes);
+  if (rows > kSegRows) rows = kSegRows;
+  if (rows > r) rows = r;
+  if (rows < 1) return bad;
+  constexpr long long kTile = static_cast<long long>(kSegThreads) * kSegLanes;
+  const dim3 grid(static_cast<unsigned>((max_lanes + kTile - 1) / kTile),
+                  static_cast<unsigned>((r + rows - 1) / rows),
+                  static_cast<unsigned>(work < 65535 ? work : 65535));
+  const size_t smem = static_cast<size_t>(rows) * k * kTableBytes;
+  gf_segments_kernel<kSegThreads, kSegLanes, kSegRows><<<grid, kSegThreads, smem, st>>>(
+      static_cast<const uint8_t*>(tables), r, k, rows, sum, sum_stride, p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Writes the built variants as (threads, lanes, rows) triples into out (room

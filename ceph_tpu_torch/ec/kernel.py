@@ -15,6 +15,14 @@ a degraded read or a rebuild.
     wrapped mod 2^32), so one scalar crosses to the host.  It replaces
     ``_pallas_probe_sum``; ``gf_apply_checksum_plain`` is its plain
     version.
+  * ``gf_apply_segments`` applies one matrix to many strided segments in
+    one launch of the same source's segments kernel: a segment's k input
+    rows may lie in several blocks (a mesh position's block each) and its
+    r output rows in another, with per-row byte sums of the output as an
+    epilogue.  It is the device half of the mesh steps (``parallel/``),
+    whose JAX programs (``ceph_tpu/parallel/layout.py``,
+    ``mesh_exec.py``) it replaces; ``gf_apply_segments_plain`` is its
+    plain version.
   * ``gf_apply_plain`` is the plain PyTorch version.  It mirrors the JAX
     package's ``_apply_bitmatrix``: unpack the k byte rows to 8k bit-planes,
     multiply by the (8r x 8k) 0/1 bit-matrix, take each sum mod 2, repack.
@@ -38,6 +46,7 @@ decode pass) is keyed by the (r, k) matrix shape, which the reference's
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import threading
 import time
@@ -58,6 +67,9 @@ gf_apply_launches = 0
 #: launches of the checksum probe, counted where ``gf_apply_checksum``
 #: launches it
 gf_apply_checksum_launches = 0
+#: launches of the segments kernel, counted where ``gf_apply_segments``
+#: launches it
+gf_apply_segments_launches = 0
 _count_lock = threading.Lock()
 _lib_lock = threading.Lock()
 _lib = None
@@ -193,6 +205,9 @@ def _library():
             lib.gf_apply_checksum.argtypes = [vp, ci, ci, vp, cll, cll,
                                               ci, ci, ci, vp, vp]
             lib.gf_apply_checksum.restype = ci
+            lib.gf_apply_segments.argtypes = [vp, ci, ci, vp, ci, vp, ci,
+                                              vp, ci, ci, vp]
+            lib.gf_apply_segments.restype = ci
             lib.gf_tune_space.argtypes = [vp, ci]
             lib.gf_tune_space.restype = ci
             lib.gf_apply_error_string.argtypes = [ci]
@@ -304,6 +319,175 @@ def gf_apply_checksum(ops: MatrixOperands, data: torch.Tensor,
     global gf_apply_checksum_launches
     with _count_lock:
         gf_apply_checksum_launches += 1
+    return total
+
+
+#: segments and input blocks one segments launch carries in its parameter
+#: space (csrc/gf_apply.cu kMaxSegments, kMaxInputs)
+SEGMENT_CAP = 32
+SEGMENT_INPUT_CAP = 64
+
+
+class Segment(NamedTuple):
+    """One segment of a ``gf_apply_segments`` launch: ``out[s, i, l] = XOR_j
+    mat[i, j] * in[s, j, l]``, where the k input rows are the rows of
+    ``inputs`` in order.  Each input is a [stripes, rows, lanes] uint8
+    view, ``out`` a [stripes, r, lanes] one, all with the same stripes
+    and lanes; ``sum`` adds the segment's output bytes into the launch's
+    per-row sums."""
+    inputs: tuple
+    out: torch.Tensor
+    sum: bool = True
+
+
+def _merge_blocks(records: list) -> list:
+    """Fold input blocks that continue one another at one row stride into
+    one record: the blocks of positions laid side by side in one buffer."""
+    out = [list(records[0])]
+    for ptr, row, stripe, rows in records[1:]:
+        last = out[-1]
+        step = row if last[1] == 0 else last[1]
+        if last[3] == 1 and rows == 1:
+            step = ptr - last[0]
+        if (step > 0 and (row in (0, step)) and (last[1] in (0, step))
+                and last[2] == stripe
+                and ptr == last[0] + last[3] * step):
+            last[1] = step
+            last[3] += rows
+        else:
+            out.append([ptr, row, stripe, rows])
+    return out
+
+
+def _segment_plan(r: int, k: int, segments, device) -> tuple:
+    """Check every segment as the kernel takes it and plan its launches:
+    (the segments with work as ([stripes, rows, lanes] inputs, output,
+    sum) views, [(segs, blocks)] launch records, one entry per launch the
+    caps allow).  The kernel and its plain version run on the same
+    checks.  Each tensor's shape and strides are read once: this runs on
+    every step."""
+    views, launches, segs, blocks = [], [], [], []
+    for seg in segments:
+        out = seg.out if seg.out.dim() != 2 else seg.out.unsqueeze(0)
+        if out.dim() != 3:
+            raise ValueError("a segment takes [stripes, rows, lanes] inputs "
+                             "and output")
+        S, rr, L = out.shape
+        ins, recs, rows = [], [], 0
+        for t in (out,) + tuple(seg.inputs):
+            if t.dim() == 2:
+                t = t.unsqueeze(0)
+            sh = t.shape
+            if (len(sh) != 3 or t.dtype != torch.uint8
+                    or t.device != device or sh[0] != S or sh[2] != L):
+                raise ValueError(
+                    f"segment tensors must be [stripes={S}, rows, "
+                    f"lanes={L}] uint8 on {device}, got {t.dtype} "
+                    f"{tuple(sh)} on {t.device}")
+            st = t.stride()
+            if L > 1 and st[2] != 1 and sh[0] * sh[1]:
+                raise ValueError("segment lanes must be contiguous "
+                                 "(stride 1)")
+            if t is not out:
+                ins.append(t)
+                rows += sh[1]
+                if sh[1]:
+                    recs.append([t.data_ptr(), st[1] if sh[1] > 1 else 0,
+                                 st[0] if S > 1 else 0, sh[1]])
+        if rr != r or rows != k:
+            raise ValueError(f"a segment of a [{r}, {k}] matrix takes {k} "
+                             f"input rows and {r} output rows, got {rows} "
+                             f"and {rr}")
+        if S * L == 0:
+            continue
+        if L >= 1 << 31:
+            raise ValueError(f"a segment of {L} lanes: at most 2^31 - 1")
+        recs = _merge_blocks(recs)
+        if len(recs) > SEGMENT_INPUT_CAP:
+            raise ValueError(f"a segment of {len(recs)} input blocks: at "
+                             f"most {SEGMENT_INPUT_CAP}")
+        views.append((ins, out, seg.sum))
+        if len(segs) == SEGMENT_CAP \
+                or len(blocks) + len(recs) > SEGMENT_INPUT_CAP:
+            launches.append((segs, blocks))
+            segs, blocks = [], []
+        ost = out.stride()
+        segs.append([out.data_ptr(), ost[1] if r > 1 else 0,
+                     ost[0] if S > 1 else 0, L, S, len(blocks),
+                     len(recs), int(bool(seg.sum))])
+        blocks.extend(recs)
+    if segs:
+        launches.append((segs, blocks))
+    return views, launches
+
+
+def gf_apply_segments_plain(bitmat: torch.Tensor, segments,
+                            sums: bool = False) -> Optional[torch.Tensor]:
+    """Plain version of ``gf_apply_segments``, on the same checks: each
+    segment's input rows gathered, ``gf_apply_plain`` over its stripes
+    side by side, the result written into its output; with ``sums``, the
+    int64 [r] per-row byte sums of the summed segments' outputs, mod
+    2^32."""
+    r, k = bitmat.shape[0] // 8, bitmat.shape[1] // 8
+    views, _ = _segment_plan(r, k, segments, bitmat.device)
+    total = torch.zeros(r, dtype=torch.int64, device=bitmat.device) \
+        if sums else None
+    for ins, out, summed in views:
+        S, _, L = out.shape
+        data = torch.cat(ins, dim=1).permute(1, 0, 2).reshape(k, S * L)
+        res = gf_apply_plain(bitmat, data)                     # [r, S*L]
+        out.copy_(res.view(r, S, L).permute(1, 0, 2))
+        if sums and summed:
+            total += res.sum(dim=1, dtype=torch.int64)
+    return total % (1 << 32) if sums else None
+
+
+def gf_apply_segments(ops: MatrixOperands,
+                      segments, sums: bool = False) -> Optional[torch.Tensor]:
+    """Apply ``ops.mat`` to every ``Segment`` of ``segments`` in launches
+    of csrc/gf_apply.cu's segments kernel, writing each segment's output
+    in place.  With ``sums``, returns the int64 [r] per-row sums of the
+    summed segments' output bytes, mod 2^32, on the matrix's device
+    (else None).
+
+    A launch carries at most ``SEGMENT_CAP`` segments and
+    ``SEGMENT_INPUT_CAP`` input blocks (blocks that continue one another
+    at one row stride count once); more make more launches, each
+    counted.  A segment of more input blocks than that raises.  Segments
+    of no stripes or no lanes are skipped.  Tensors on the CPU run the
+    plain version; on CUDA the kernel launches or the call raises."""
+    r, k = ops.mat.shape
+    dev = ops.tables.device
+    if dev.type == "cpu":
+        return gf_apply_segments_plain(ops.bitmat, segments, sums)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    _, launches = _segment_plan(r, k, segments, dev)
+    if not launches:
+        return torch.zeros(r, dtype=torch.int64, device=dev) if sums else None
+    # the low word of each int64 counter gathers the uint32 sum and the
+    # high word stays 0, so its value is the sum mod 2^32; the first
+    # launch zeroes them
+    total = torch.empty(r, dtype=torch.int64, device=dev) if sums else None
+    lib = _library()
+    global gf_apply_segments_launches
+    # the device guard only where the launch's card is not current
+    with (contextlib.nullcontext() if dev.index in (None,
+          torch.cuda.current_device()) else torch.cuda.device(dev)):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for i, (segs, blocks) in enumerate(launches):
+            seg_arr = np.asarray(segs, np.int64).reshape(-1, 8)
+            blk_arr = np.asarray(blocks, np.int64).reshape(-1, 4)
+            rc = lib.gf_apply_segments(
+                ops.tables.data_ptr(), r, k, seg_arr.ctypes.data,
+                len(seg_arr), blk_arr.ctypes.data, len(blk_arr),
+                total.data_ptr() if sums else None, 2, int(i == 0), stream)
+            if rc != 0:
+                raise RuntimeError(
+                    f"gf_apply_segments launch failed: CUDA error {rc} "
+                    f"({lib.gf_apply_error_string(rc).decode()})")
+            with _count_lock:
+                gf_apply_segments_launches += 1
     return total
 
 

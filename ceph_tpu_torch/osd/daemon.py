@@ -575,7 +575,9 @@ class OSD(Dispatcher):
             # PGs peer at once: each asking the mon for every epoch the
             # OSD missed before its boot floods the mon's command queue
             # past its timeout).  Shard threads share it: the future is
-            # a thread-safe one
+            # a thread-safe one.  A waiter whose peering is superseded is
+            # cancelled; the shield keeps that from cancelling the
+            # shared fetch under the owner and the other waiters
             with self._map_fetch_lock:
                 fetch = self._map_fetches.get(e)
                 owner = fetch is None
@@ -583,7 +585,7 @@ class OSD(Dispatcher):
                     fetch = self._map_fetches[e] = \
                         concurrent.futures.Future()
             if not owner:
-                await asyncio.wrap_future(fetch)
+                await asyncio.shield(asyncio.wrap_future(fetch))
                 continue
             try:
                 try:

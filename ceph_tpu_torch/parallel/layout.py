@@ -31,16 +31,17 @@ positions on one card), and a step is host code over per-position blocks:
     ``ppermute`` a reassignment of blocks between positions, ``psum`` a
     sum that wraps mod 2^32 as the JAX package's uint32 sums do;
   * the per-stripe bit-matrix apply (the JAX package's ``vmap`` of
-    ``_apply_bitmatrix``, the unfused form of what K1 fuses) is K1: the
-    positions that share a device lay their stripes and slices side by
-    side along the lanes, and ONE ``MatrixApply.device_call``
-    (``gf_apply``) serves them all.  On the CPU the same code runs K1's
-    plain version.
+    ``_apply_bitmatrix``) and its scrub sum are ONE launch per device of
+    ``gf_apply_segments`` (csrc/gf_apply.cu): one segment per position
+    block (per host row for the recover step, whose survivor rows lie in
+    the row's position blocks), read where the blocks lie and written
+    into one output buffer per device, with the per-row byte sums as the
+    kernel's epilogue.  On the CPU the same code runs its plain version.
 
-The steps take the GF(2^8) matrix (K1's operand) where the JAX package's
-take the expanded bit-matrix.  A scrub is an int64 tensor of values mod
-2^32 (the JAX package's is uint32).  ``shard_map_check_kwargs``, glue
-between jax versions, has no counterpart.
+The steps take the GF(2^8) matrix (the kernels' operand) where the JAX
+package's take the expanded bit-matrix.  A scrub is an int64 tensor of
+values mod 2^32 (the JAX package's is uint32).  ``shard_map_check_kwargs``,
+glue between jax versions, has no counterpart.
 """
 
 from __future__ import annotations
@@ -50,7 +51,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ceph_tpu_torch.ec.kernel import gf_apply_plain, matrix_apply
+from ceph_tpu_torch.ec import kernel as ec_kernel
+from ceph_tpu_torch.ec.kernel import Segment, matrix_apply
 
 #: a partition spec: one mesh axis name (or None: not split) per dimension
 Spec = Tuple[Optional[str], ...]
@@ -124,14 +126,18 @@ def make_mesh(n_devices: Optional[int] = None,
 class Sharded:
     """A global tensor of ``shape`` laid over ``mesh`` by ``spec``:
     ``blocks[pos]`` is position ``pos``'s block, on its device.  A
-    dimension whose spec entry is None is whole on every position."""
+    dimension whose spec entry is None is whole on every position.
+    ``base`` is the global tensor whose slices the blocks are, where
+    ``host_sharded`` laid it on one device; else None."""
 
     def __init__(self, mesh: Mesh, spec: Spec, shape: tuple,
-                 blocks: Dict[Pos, torch.Tensor]):
+                 blocks: Dict[Pos, torch.Tensor],
+                 base: Optional[torch.Tensor] = None):
         self.mesh = mesh
         self.spec = tuple(spec) + (None,) * (len(shape) - len(spec))
         self.shape = tuple(shape)
         self.blocks = blocks
+        self.base = base
 
     def index(self, pos: Pos) -> tuple:
         """Position ``pos``'s slice of the global tensor."""
@@ -182,9 +188,9 @@ def host_sharded(mesh: Mesh, x, spec: Spec) -> Sharded:
             raise ValueError(f"dimension {dim} does not split over "
                              f"{mesh.shape[axis]} positions of {axis!r}")
     devs = set(mesh.devices.flat)
-    if len(devs) == 1:
-        x = move_to(x, next(iter(devs)))
-    out = Sharded(mesh, spec, tuple(x.shape), {})
+    base = move_to(x, next(iter(devs))) if len(devs) == 1 else None
+    x = x if base is None else base
+    out = Sharded(mesh, spec, tuple(x.shape), {}, base)
     for pos in mesh.positions():
         out.blocks[pos] = move_to(x[out.index(pos)], mesh.devices[pos])
     return out
@@ -192,34 +198,43 @@ def host_sharded(mesh: Mesh, x, spec: Spec) -> Sharded:
 
 class Step:
     """A built mesh step: calling it runs it.  ``runs`` counts its runs,
-    ``k1_launches`` the K1 launches they made on a card (one per device
-    and run).  A ``plain`` step applies K1's plain version on every
-    device: the step's plain version, which a card's run is held
-    against."""
+    ``seg_launches`` the ``gf_apply_segments`` launches they made on a
+    card (one per device and run).  A ``plain`` step applies the
+    kernel's plain version on every device: the step's plain version,
+    which a card's run is held against."""
 
     def __init__(self, name: str, fn, plain: bool = False):
         self.name = name
         self._fn = fn
         self.plain = plain
         self.runs = 0
-        self.k1_launches = 0
+        self.seg_launches = 0
 
     def __call__(self, *args):
         self.runs += 1
         return self._fn(*args)
 
-    def apply(self, mat_apply, buf: torch.Tensor) -> torch.Tensor:
-        """One K1 launch (plain version on the CPU) over ``buf``'s lanes."""
+    def apply(self, mat_apply, segments: List[Segment],
+              sums: bool = True) -> Optional[torch.Tensor]:
+        """``gf_apply_segments`` over ``segments`` (plain version on the
+        CPU): one launch unless they pass its caps, each launch counted;
+        with ``sums``, returns the int64 per-row sums of the summed
+        segments' outputs, mod 2^32."""
+        ops = mat_apply.ops
         if self.plain:
-            return gf_apply_plain(mat_apply.ops.bitmat, buf)
-        out = mat_apply.device_call(buf)
-        if buf.is_cuda and buf.shape[1]:
-            self.k1_launches += 1
-        return out
+            return ec_kernel.gf_apply_segments_plain(ops.bitmat, segments,
+                                                     sums)
+        before = ec_kernel.gf_apply_segments_launches
+        sums = ec_kernel.gf_apply_segments(ops, segments, sums)
+        self.seg_launches += ec_kernel.gf_apply_segments_launches - before
+        return sums
 
 
 def _wrap32(sums: List[torch.Tensor], dev: torch.device) -> torch.Tensor:
-    """psum of per-position uint32 sums: their total mod 2^32."""
+    """psum of per-device sums mod 2^32: their total mod 2^32 (one device's
+    sums as they are)."""
+    if len(sums) == 1 and sums[0].device == dev:
+        return sums[0]
     total = sums[0].to(dev)
     for s in sums[1:]:
         total = total + s.to(dev)
@@ -235,7 +250,7 @@ def ec_cluster_step(mesh: Mesh, mat: np.ndarray,
     """Build the multi-position EC data-plane step.
 
     Input  data [B, k, L] uint8: B stripes over 'host', bytes L over
-    'shard'.  Per step: encode parity (K1 with the [m, k] parity matrix
+    'shard'.  Per step: encode parity (the [m, k] parity matrix
     ``mat``), ring-shift parity one position along 'shard' (the shard
     fan-out hop), and sum a per-chunk crc-proxy over every position (the
     scrub roll-up).  Returns (parity, scrub): parity [B, m, L] laid out
@@ -248,6 +263,7 @@ def ec_cluster_step(mesh: Mesh, mat: np.ndarray,
     groups = mesh.by_device()
     applies = {dev: matrix_apply(mat, dev) for dev in groups}
     spec = ("host", None, "shard")
+    n_host = mesh.shape["host"]
 
     def run(data):
         x = _place(mesh, data, spec)
@@ -256,25 +272,31 @@ def ec_cluster_step(mesh: Mesh, mat: np.ndarray,
             raise ValueError(f"data has {kk} chunks, the matrix takes {k}")
         parity: Dict[Pos, torch.Tensor] = {}
         sums = []
+        whole = None
+        if len(groups) == 1:
+            # on one device the parity is one [B, m, L] buffer laid out
+            # like the data, each position's block a view of it
+            whole = torch.empty((B, m, L), dtype=torch.uint8,
+                                device=mesh.devices.flat[0])
+            tiles = whole.view(n_host, B // n_host, m, n_shard,
+                               L // n_shard).permute(0, 3, 1, 2, 4)
+            parity = {(h, s): blk for h, row in enumerate(tiles.unbind(0))
+                      for s, blk in enumerate(row.unbind(0))}
         for dev, positions in groups.items():
-            blocks = [x.blocks[p] for p in positions]
-            widths = [b.shape[0] * b.shape[2] for b in blocks]
-            # every stripe of every position on this device side by side
-            # along the lanes: one launch for all of them
-            buf = torch.empty((k, sum(widths)), dtype=torch.uint8,
-                              device=dev)
-            off = 0
-            for b, w in zip(blocks, widths):
-                buf[:, off:off + w].view(k, b.shape[0], b.shape[2]) \
-                    .copy_(b.permute(1, 0, 2))
-                off += w
-            out = step.apply(applies[dev], buf)            # [m, lanes]
-            off = 0
-            for p, b, w in zip(positions, blocks, widths):
-                parity[p] = out[:, off:off + w].view(
-                    m, b.shape[0], b.shape[2]).permute(1, 0, 2)
-                off += w
-            sums.append(out.sum(dim=1, dtype=torch.int64))
+            if whole is not None and x.base is not None:
+                # the position blocks are slices of one buffer: one
+                # segment reads it and writes the parity where it lies
+                segs = [Segment((x.base,), whole)]
+            else:
+                segs = []
+                for p in positions:
+                    blk = x.blocks[p]                   # [b, k, Ls]
+                    if whole is None:
+                        parity[p] = torch.empty(
+                            (blk.shape[0], m, blk.shape[2]),
+                            dtype=torch.uint8, device=dev)
+                    segs.append(Segment((blk,), parity[p]))
+            sums.append(step.apply(applies[dev], segs))
         # the shard fan-out hop: each position hands its parity slice to
         # the next ring position (ECBackend's MOSDECSubOpWrite to the next
         # shard OSD)
@@ -299,7 +321,7 @@ def ec_recover_step(mesh: Mesh, mat: np.ndarray, n_surv: int,
     ITS OWN chunks of every stripe — input surv [B, n_surv, L] laid
     (host, shard, -): the chunk AXIS is distributed, so no position can
     decode alone.  The step gathers the survivor chunks along 'shard'
-    and decodes with K1 and the [n_want, n_surv] decode matrix ``mat``;
+    and decodes with the [n_want, n_surv] decode matrix ``mat``;
     the rebuilt chunks are then available at every shard position of the
     host row (replicate-on-recover: positions of a row on one device
     share one view), and a sum over 'host' rolls up a scrub digest of the
@@ -316,41 +338,37 @@ def ec_recover_step(mesh: Mesh, mat: np.ndarray, n_surv: int,
         raise ValueError(f"decode matrix {mat.shape} for {n_surv} "
                          f"survivors")
     n_host, n_shard = mesh.shape["host"], mesh.shape["shard"]
-    per = n_surv // n_shard
     groups = mesh.by_device()
     applies = {dev: matrix_apply(mat, dev) for dev in groups}
     spec = ("host", "shard", None)
 
     def run(surv):
         x = _place(mesh, surv, spec)
-        B, ns, L = x.shape
+        B, _, L = x.shape
         b_loc = B // n_host
-        width = b_loc * L
         lost: Dict[Pos, torch.Tensor] = {}
-        row_sums: Dict[int, torch.Tensor] = {}
+        sums, summed = [], set()
         for dev, positions in groups.items():
             rows = sorted({h for h, _ in positions})
-            # the gather along 'shard': each host row's whole survivor
-            # set, once per device, its rows side by side along the lanes
-            buf = torch.empty((ns, len(rows) * width), dtype=torch.uint8,
-                              device=dev)
+            # the rebuilt chunks of this device's host rows: one buffer
+            rebuilt = torch.empty((len(rows) * b_loc, n_want, L),
+                                  dtype=torch.uint8, device=dev)
+            segs = []
             for r, h in enumerate(rows):
-                dst = buf[:, r * width:(r + 1) * width].view(ns, b_loc, L)
-                for s in range(n_shard):
-                    dst[s * per:(s + 1) * per].copy_(
-                        x.blocks[h, s].permute(1, 0, 2),
-                        non_blocking=dev.type == "cuda")
-            out = step.apply(applies[dev], buf)       # [n_want, lanes]
-            for r, h in enumerate(rows):
-                part = out[:, r * width:(r + 1) * width]
-                view = part.view(n_want, b_loc, L).permute(1, 0, 2)
+                # the gather along 'shard': the row's survivor rows are its
+                # positions' blocks, read where they lie (a block of
+                # another device moves here first)
+                ins = tuple(move_to(x.blocks[h, s], dev)
+                            for s in range(n_shard))
+                out = rebuilt[r * b_loc:(r + 1) * b_loc]
+                # a host row spread over devices enters the scrub once
+                segs.append(Segment(ins, out, h not in summed))
+                summed.add(h)
                 for p in positions:
                     if p[0] == h:
-                        lost[p] = view
-                if h not in row_sums:
-                    row_sums[h] = part.sum(dim=1, dtype=torch.int64)
-        scrub = _wrap32([row_sums[h] for h in sorted(row_sums)],
-                        mesh.devices.flat[0])
+                        lost[p] = out
+            sums.append(step.apply(applies[dev], segs))
+        scrub = _wrap32(sums, mesh.devices.flat[0])
         return Sharded(mesh, ("host", None, None), (B, n_want, L),
                        lost), scrub
 

@@ -23,11 +23,13 @@ The port's copy of ``ceph_tpu.parallel.mesh_exec``.  The JAX package
 sizes its meshes from ``jax.devices()``; here the executor holds a list of
 positions (``torch.device``s, entries may repeat), given to ``enable``
 and by default one per visible card, so an RS k=8 m=4 encode on one card
-raises, as the JAX package's does on one chip.  The mesh programs are
-``layout``'s steps: positions that share a device and a matrix make ONE
-K1 launch, so on one card an object's encode is one launch with the
-rows of all its positions (data rows are identity).  The executor counts
-encode and recover launches apart, and the K1 launches inside each.
+raises, as the JAX package's does on one chip.  The mesh programs make
+ONE ``gf_apply_segments`` launch per device (csrc/gf_apply.cu): an
+object's encode computes the parity rows alone (a data position's shard
+is its input block), and on one device a window of parked rebuilds is
+one launch with a segment per request length, neither padded.  The
+executor counts encode and recover launches apart, and the kernel
+launches inside each.
 
 Two faults of the JAX package's executor are repaired here: a sub-op it
 delivers in process is marked (``in_process``) so that a replica not yet
@@ -45,9 +47,10 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ceph_tpu_torch.ec.kernel import Segment, matrix_apply
 from ceph_tpu_torch.parallel.layout import (Mesh, Sharded, Step, move_to,
                                             default_devices, ec_recover_step,
-                                            host_sharded, position_device)
+                                            position_device)
 
 _EXECUTOR: Optional["MeshExecutor"] = None
 
@@ -85,7 +88,9 @@ def _mesh_recover_fn(n_surv: int, n_want: int, mat_bytes: bytes,
     reconstructing n_want chunks from n_surv survivors.  The host x shard
     mesh is sized so 'shard' divides the survivor count (single-position
     runs collapse to 1x1).  Returns (fn, host_dim) — callers pad the
-    stripe batch axis to a host_dim multiple."""
+    stripe batch axis to a host_dim multiple.  A mesh over several
+    devices rebuilds through it; on one device ``_mesh_rebuild_fn``
+    takes its place."""
     mat = np.frombuffer(mat_bytes, np.uint8).reshape(n_want, n_surv)
     devs = list(devices)
     shard = 1
@@ -101,14 +106,51 @@ def _mesh_recover_fn(n_surv: int, n_want: int, mat_bytes: bytes,
 
 
 @lru_cache(maxsize=32)
+def _mesh_rebuild_fn(n_surv: int, n_want: int, mat_bytes: bytes,
+                     device: torch.device, plain: bool = False) -> Step:
+    """Decode-rebuild on one device, where every position of the mesh
+    lies: ``layout.ec_recover_step``'s work with no mesh to pad for.
+    ``step(surv, out=None)`` takes a [B, n_surv, L] tensor, or a list of
+    [n_surv, L_i] or [S_i, n_surv, L_i] tensors of their own lengths, on
+    ``device``, and rebuilds them with ``gf_apply_segments``, one segment
+    per tensor (one launch up to its segment cap); ``out`` gives the
+    outputs (the same structure, n_want rows), else they are allocated.  Returns (rebuilt, scrub
+    [n_want] int64 mod 2^32).  This is a deliberate deviation from the
+    JAX package, which pads stripes and lanes to bound its jit cache: a
+    hand-written kernel compiles once."""
+    apply = matrix_apply(np.frombuffer(mat_bytes, np.uint8)
+                         .reshape(n_want, n_surv), device)
+
+    def run(surv, out=None):
+        single = torch.is_tensor(surv)
+        items = [surv] if single else list(surv)
+        if out is None:
+            out = [torch.empty(t.shape[:-2] + (n_want, t.shape[-1]),
+                               dtype=torch.uint8, device=device)
+                   for t in items]
+        elif single:
+            out = [out]
+        scrub = step.apply(apply, [Segment((t,), o)
+                                   for t, o in zip(items, out)])
+        return (out[0] if single else list(out)), scrub
+
+    step = Step("mesh_recover", run, plain)
+    return step
+
+
+@lru_cache(maxsize=32)
 def _mesh_encode_fn(n: int, k: int, mat_bytes: bytes,
                     devices: Tuple[torch.device, ...], plain: bool = False):
-    """Sharded encode for an n-position 1-D mesh: in [n, Lc] chunk rows
-    (parity rows zero), out (a ``Sharded`` [n, Lc]) with position i
-    holding shard i.  Cached per (geometry, generator, positions);
-    ``plain`` builds its plain version (layout.Step)."""
-    from ceph_tpu_torch.ec.kernel import matrix_apply
-
+    """Sharded encode for an n-position 1-D mesh: in [k, Lc] data rows (or
+    [n, Lc] chunk rows whose parity rows are not read), out (a ``Sharded``
+    [n, Lc]) with position i holding shard i: a data position its input
+    block (identity rows need no product), a parity position a row of its
+    device's parity buffer.  Each device computes the parity rows of its
+    positions in one launch over the k data blocks.  ``step(inp,
+    parity=None)``: on a mesh of one device, ``parity`` ([n - k, Lc] on
+    it) is the parity buffer to write, else one is allocated.  Cached per
+    (geometry, generator, positions); ``plain`` builds its plain version
+    (layout.Step)."""
     gen = np.frombuffer(mat_bytes, np.uint8).reshape(n, k)
     devs = list(devices)
     if len(devs) < n:
@@ -117,31 +159,59 @@ def _mesh_encode_fn(n: int, k: int, mat_bytes: bytes,
     grid = np.empty(n, dtype=object)
     grid[:] = devs[:n]
     mesh = Mesh(grid, ("shard",))
-    groups = mesh.by_device()
-    # each device's positions apply their generator rows in one launch
-    # (identity rows for data shards)
-    rows = {dev: [p[0] for p in pos] for dev, pos in groups.items()}
-    applies = {dev: matrix_apply(gen[r], dev) for dev, r in rows.items()}
+    # each device's parity positions and their generator rows
+    rows = {dev: [p[0] for p in pos if p[0] >= k]
+            for dev, pos in mesh.by_device().items()}
+    applies = {dev: matrix_apply(gen[r], dev) for dev, r in rows.items()
+               if r}
+    one = len(rows) == 1
     spec = ("shard", None)
 
-    def run(inp):
-        x = inp if isinstance(inp, Sharded) else host_sharded(mesh, inp,
-                                                              spec)
-        Lc = x.shape[1]
-        out: Dict[tuple, torch.Tensor] = {}
+    def data_blocks(inp):
+        """The k data positions' [1, Lc] blocks, and on one device the
+        [k, Lc] tensor of an input tensor whose rows they are (else
+        None)."""
+        if isinstance(inp, Sharded):
+            return [inp.blocks[(i,)] for i in range(k)], None
+        t = torch.from_numpy(np.ascontiguousarray(inp)) \
+            if isinstance(inp, np.ndarray) else inp
+        if t.dim() != 2 or t.shape[0] not in (k, n):
+            raise ValueError(f"encode input must be [k={k} or n={n}, Lc], "
+                             f"got {tuple(t.shape)}")
+        if one:
+            t = move_to(t[:k], mesh.devices[0])
+            return list(t.split(1)), t
+        return [move_to(t[i:i + 1], mesh.devices[i]) for i in range(k)], None
+
+    def run(inp, parity=None):
+        if parity is not None and not one:
+            raise ValueError("a parity buffer is given only to a mesh on "
+                             "one device")
+        data, rows_in = data_blocks(inp)
+        Lc = data[0].shape[1]
+        out: Dict[tuple, torch.Tensor] = {(i,): data[i] for i in range(k)}
         for dev, ids in rows.items():
-            # the gather: every position receives all k data chunks
-            # (replaces the messenger's per-shard chunk send); the
-            # positions on one device share them
-            data = torch.cat([move_to(x.blocks[(i,)], dev)
-                              for i in range(k)])           # [k, Lc]
-            res = step.apply(applies[dev], data)            # [len(ids), Lc]
-            for j, i in enumerate(ids):
-                out[(i,)] = res[j:j + 1]
+            if not ids:
+                continue
+            # the gather: the device reads all k data chunks where they
+            # lie (replaces the messenger's per-shard chunk send)
+            buf = parity if parity is not None else torch.empty(
+                (len(ids), Lc), dtype=torch.uint8, device=dev)
+            ins = ((rows_in,) if rows_in is not None
+                   else tuple(move_to(d, dev) for d in data))
+            step.apply(applies[dev], [Segment(ins, buf, False)], sums=False)
+            out.update(zip([(i,) for i in ids], buf.split(1)))
         return Sharded(mesh, spec, (n, Lc), out)
 
     step = Step("mesh_encode", run, plain)
     return step, mesh
+
+
+def _pinned(shape, dev: torch.device) -> torch.Tensor:
+    """A host buffer to stage for ``dev``: pinned for a card, so its copy
+    runs without blocking."""
+    return torch.empty(shape, dtype=torch.uint8,
+                       pin_memory=dev.type == "cuda")
 
 
 class MeshExecutor:
@@ -157,10 +227,11 @@ class MeshExecutor:
         self.launches = 0
         self.encode_launches = 0
         self.recover_launches = 0
-        #: K1 launches inside the encode and the recover launches
-        self.k1_encode = 0
-        self.k1_recover = 0
-        #: recover launches by the stripes they stacked (before padding)
+        #: gf_apply_segments launches inside the encode and the recover
+        #: launches
+        self.seg_encode = 0
+        self.seg_recover = 0
+        #: recover launches by the stripes they stacked (before any pad)
         self.rec_stripes: Dict[int, int] = {}
         #: seconds the executor's thread spent in each kind of launch
         #: (host clock: staging, the program, the fetch)
@@ -176,11 +247,17 @@ class MeshExecutor:
         self._rec_tasks: Dict[int, object] = {}
 
     @property
+    def one_device(self) -> bool:
+        """Whether every position is on one device: the launches then
+        stage once, and rebuild unpadded."""
+        return len(set(self.devices)) == 1
+
+    @property
     def host_fallback(self) -> bool:
         """Whether a failed mesh program may fall back to the batch queue,
         as the JAX package's always does: only when no position is off
         the CPU.  On a card the error goes to the caller, so no other
-        path hides a failed K1 launch."""
+        path hides a failed kernel launch."""
         return all(d.type == "cpu" for d in self.devices)
 
     def register(self, osd) -> None:
@@ -206,34 +283,44 @@ class MeshExecutor:
         k = codec.get_data_chunk_count()
         n = codec.get_chunk_count()
         chunks = codec.split_data(data)             # [k, Lc]
-        Lc = len(chunks[0])
-
-        def _launch():
-            import time
-            from ceph_tpu_torch.common import devstats
-            t0 = time.perf_counter()
-            mat_bytes = np.ascontiguousarray(gen, np.uint8).tobytes()
-            fn, _mesh = _mesh_encode_fn(n, k, mat_bytes, self.devices)
-            inp = np.zeros((n, Lc), np.uint8)
-            for i in range(k):
-                inp[i] = chunks[i]
-            devstats.note_launch("mesh_encode",
-                                 (n, k, hash(mat_bytes), Lc))
-            k1 = fn.k1_launches
-            # device-sync:begin sharded-encode fetch: this closure runs
-            # on the mesh executor's own thread (run_in_executor above)
-            # — the event loop only awaits the handoff
-            out = fn(torch.from_numpy(inp)).gather().cpu().numpy()
-            # device-sync:end
-            self.k1_encode += fn.k1_launches - k1
-            self.busy_s["encode"] += time.perf_counter() - t0
-            return out
-
-        out = await asyncio.get_running_loop().run_in_executor(
-            self._pool, _launch)
+        parity = await asyncio.get_running_loop().run_in_executor(
+            self._pool, self._encode_launch, gen, n, chunks)
         self.launches += 1
         self.encode_launches += 1
-        return {i: out[i] for i in range(n)}
+        return {i: chunks[i] if i < k else parity[i - k] for i in range(n)}
+
+    def _encode_launch(self, gen, n: int, chunks) -> np.ndarray:
+        """Executor thread: the sharded encode of an object's [k, Lc] data
+        chunks; returns its [n - k, Lc] parity rows.  The k data rows are
+        staged once (pinned for a card) and sent in one copy, and only
+        the parity rows come back."""
+        import time
+        from ceph_tpu_torch.common import devstats
+        t0 = time.perf_counter()
+        k, Lc = len(chunks), len(chunks[0])
+        mat_bytes = np.ascontiguousarray(gen, np.uint8).tobytes()
+        fn, _mesh = _mesh_encode_fn(n, k, mat_bytes, self.devices)
+        devstats.note_launch("mesh_encode", (n, k, hash(mat_bytes), Lc))
+        seg = fn.seg_launches
+        dev = self.devices[0]
+        staged = _pinned((k, Lc), dev)
+        staged.numpy()[:] = chunks
+        parity = np.empty((n - k, Lc), np.uint8)
+        # device-sync:begin sharded-encode fetch: this runs on the mesh
+        # executor's own thread (run_in_executor above) — the event loop
+        # only awaits the handoff
+        if self.one_device:
+            buf = torch.empty((n - k, Lc), dtype=torch.uint8, device=dev)
+            fn(staged.to(dev, non_blocking=True), buf)
+            torch.from_numpy(parity).copy_(buf)
+        else:
+            shards = fn(staged).blocks
+            for i in range(k, n):
+                torch.from_numpy(parity[i - k:i - k + 1]).copy_(shards[(i,)])
+        # device-sync:end
+        self.seg_encode += fn.seg_launches - seg
+        self.busy_s["encode"] += time.perf_counter() - t0
+        return parity
 
     # ------------------------------------------------------------ recover
     async def recover_chunks(self, codec, want,
@@ -319,40 +406,100 @@ class MeshExecutor:
 
     def _rec_launch(self, key: tuple, survs: list) -> list:
         """Executor thread: one sharded decode launch for every parked
-        request sharing a decode matrix.  Stripes stack along the batch
-        ('host'-sharded) axis, padded to a host-multiple power of two;
-        lanes pad to a power-of-two bucket — both bound the step cache."""
+        request sharing a decode matrix.  On one device (every position
+        there) the requests are staged once, each length's requests side
+        by side, and rebuilt in one launch with a segment per length, no
+        pad; only the rebuilt rows come back.  A mesh over several devices
+        stacks the stripes along the batch ('host'-sharded) axis, padded
+        to a host-multiple power of two, with lanes padded to a
+        power-of-two bucket, as the JAX package pads to bound its step
+        cache."""
         import time
         from ceph_tpu_torch.common import devstats
         t0 = time.perf_counter()
         n_surv, n_want, mat_bytes = key
-        fn, host = _mesh_recover_fn(n_surv, n_want, mat_bytes,
-                                    self.devices)
         lens = [s.shape[1] for s in survs]
         B = len(survs)
         self.rec_stripes[B] = self.rec_stripes.get(B, 0) + 1
-        Bp = host * _pow2_at_least(-(-B // host))
-        Lp = max(4096, _pow2_at_least(max(lens)))
-        inp = np.zeros((Bp, n_surv, Lp), np.uint8)
-        for i, s in enumerate(survs):
-            inp[i, :, :s.shape[1]] = s
-        devstats.note_launch(
-            "decode_rebuild", (n_surv, n_want, hash(mat_bytes), Bp, Lp))
-        k1 = fn.k1_launches
-        # device-sync:begin batched decode-rebuild fetch: this runs on
-        # the mesh executor's own thread (run_in_executor above) — the
-        # event loop only awaits the handoff
-        lost, _scrub = fn(torch.from_numpy(inp))
-        out = lost.gather().cpu().numpy()      # [Bp, n_want, Lp]
-        # device-sync:end
-        self.k1_recover += fn.k1_launches - k1
+        if self.one_device:
+            out, seg = self._rec_one_device(key, survs)
+        else:
+            fn, host = _mesh_recover_fn(n_surv, n_want, mat_bytes,
+                                        self.devices)
+            Bp = host * _pow2_at_least(-(-B // host))
+            Lp = max(4096, _pow2_at_least(max(lens)))
+            inp = np.zeros((Bp, n_surv, Lp), np.uint8)
+            for i, s in enumerate(survs):
+                inp[i, :, :s.shape[1]] = s
+            devstats.note_launch("decode_rebuild", (n_surv, n_want,
+                                                    hash(mat_bytes), Bp, Lp))
+            seg = fn.seg_launches
+            # device-sync:begin batched decode-rebuild fetch: this runs on
+            # the mesh executor's own thread (run_in_executor above) — the
+            # event loop only awaits the handoff
+            lost, _scrub = fn(torch.from_numpy(inp))
+            full = lost.gather().cpu().numpy()      # [Bp, n_want, Lp]
+            # device-sync:end
+            seg = fn.seg_launches - seg
+            out = [np.ascontiguousarray(full[i, :, :lens[i]])
+                   for i in range(B)]
+        self.seg_recover += seg
         devstats.note_bytes("decode_rebuild", n_surv * sum(lens),
                             device=True)
         self.launches += 1
         self.recover_launches += 1
         self.busy_s["recover"] += time.perf_counter() - t0
-        return [np.ascontiguousarray(out[i, :, :lens[i]])
-                for i in range(B)]
+        return out
+
+    def _rec_one_device(self, key: tuple, survs: list) -> tuple:
+        """The one-device rebuild: (each request's [n_want, L_i] rebuilt
+        rows, the kernel launches made)."""
+        from ceph_tpu_torch.common import devstats
+        n_surv, n_want, mat_bytes = key
+        dev = self.devices[0]
+        fn = _mesh_rebuild_fn(n_surv, n_want, mat_bytes, dev)
+        devstats.note_launch("decode_rebuild",
+                             (n_surv, n_want, hash(mat_bytes)))
+        # requests of one length side by side: one segment of that many
+        # stripes; each group starts 16-byte aligned in both buffers
+        groups: Dict[int, list] = {}
+        for i, s in enumerate(survs):
+            groups.setdefault(s.shape[1], []).append(i)
+        spans, off_in, off_out = [], 0, 0
+        for L, ids in groups.items():
+            spans.append((L, ids, off_in, off_out))
+            off_in += -(-len(ids) * n_surv * L // 16) * 16
+            off_out += -(-len(ids) * n_want * L // 16) * 16
+        staged = _pinned((off_in,), dev)
+        host = staged.numpy()
+        for L, ids, oi, _ in spans:
+            view = host[oi:oi + len(ids) * n_surv * L].reshape(
+                len(ids), n_surv, L)
+            for j, i in enumerate(ids):
+                view[j] = survs[i]
+        flat = staged.to(dev, non_blocking=True)
+        rebuilt = torch.empty((off_out,), dtype=torch.uint8, device=dev)
+        ins, outs = [], []
+        for L, ids, oi, oo in spans:
+            ins.append(flat[oi:oi + len(ids) * n_surv * L]
+                       .view(len(ids), n_surv, L))
+            outs.append(rebuilt[oo:oo + len(ids) * n_want * L]
+                        .view(len(ids), n_want, L))
+        seg = fn.seg_launches
+        # device-sync:begin one-device decode-rebuild fetch: the mesh
+        # executor's own thread (run_in_executor above); the event loop
+        # only awaits the handoff
+        fn(ins, outs)
+        back = np.empty((off_out,), np.uint8)
+        torch.from_numpy(back).copy_(rebuilt)
+        # device-sync:end
+        out = [None] * len(survs)
+        for L, ids, _, oo in spans:
+            rows = back[oo:oo + len(ids) * n_want * L].reshape(
+                len(ids), n_want, L)
+            for j, i in enumerate(ids):
+                out[i] = rows[j]
+        return out, fn.seg_launches - seg
 
     # ----------------------------------------------------------- delivery
     def deliver(self, target_osd_id: int, msg, from_osd: int) -> bool:

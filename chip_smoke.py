@@ -172,16 +172,24 @@ fault:
  17. mesh mode: the same 16 OSDs on thread lanes with osd_mesh_mode on
      and the mesh executor over 12 positions on the card, the EC pool
      alone: the 64 objects written (each primary's encode one mesh
-     program, one K1 launch with the rows of all 12 positions, the
-     sub-ops delivered in process), read, two OSDs stopped, degraded reads
-     and the rebuild decoding as mesh programs; every stored and rebuilt
-     shard equal to the CPU codec's, the batch queues launching nothing,
-     the executor's launches in stated ranges;
- 18. D3 and D4 alone: parallel/layout's ec_cluster_step over 12
-     positions (3 x 4) at [12, 8, 512 Ki], ec_recover_step over 8 (1 x 8)
-     at [64, 8, 512 Ki] with 2 data chunks lost, and mesh_exec's
-     _mesh_encode_fn at n = 12, each bit for bit against the same step on
-     K1's plain version and timed with L2 flushed beside its bytes bound;
+     program, one gf_apply_segments launch for the parity rows of all 12
+     positions, the sub-ops delivered in process), read, two OSDs
+     stopped, degraded reads and the rebuild decoding as mesh programs
+     (one unpadded launch per window of parked requests); every stored
+     and rebuilt shard equal to the CPU codec's, the batch queues and K1
+     launching nothing, the executor's launches in stated ranges, its
+     busy seconds printed;
+ 18. gf_apply_segments alone (misaligned, ragged and zero-length
+     segments, several input blocks each, 6 output rows, the 32-segment
+     cap and a split beyond it) against its plain version; then D3 and D4
+     alone: parallel/layout's ec_cluster_step over 12 positions (3 x 4) at
+     [12, 8, 512 Ki], ec_recover_step over 8 (1 x 8) at [64, 8, 512 Ki]
+     with 2 data chunks lost, the mesh run's unpadded rebuild at 1 and
+     the most stripes it stacked (also staged through the executor), and
+     mesh_exec's _mesh_encode_fn at n = 12, each bit for bit against the
+     same step on the kernel's plain version, one gf_apply_segments
+     launch and no K1 per run, device kernels per run from torch.profiler,
+     and timed with L2 flushed beside its bytes bound;
  19. one model-checker run, as tests/test_thrash.py runs its EC seed 101
      (qa.rados_model.run_model, 5 OSDs, RS k=2 m=2, thrashed), which must
      report ok; its K1 and D1 launches counted;
@@ -213,8 +221,9 @@ fault:
      operator path's steps; the CRUSH path, the OSDMap, crushtool, psim,
      the store's placement, the mon phase's four steps, the osd phase's
      call sites, the mesh run's, the model run's and the operator path's
-     steps in the OSD processes and at the client), with a row for each
-     mesh step (D3, D4).
+     steps in the OSD processes and at the client), gf_apply_segments's
+     row (the mesh run's encode and recover, the steps alone), and a row
+     for each mesh step (D3, D4).
 
 The last line of its output is ``{"ok": true, "device": {...}}``.  It
 imports nothing of JAX and nothing of the JAX package.
@@ -2664,13 +2673,14 @@ SERVICES_D1_RANGES = {"services objecter": (0, 400)}
 #: MESH_POSITIONS positions on the card, the EC pool alone (mesh mode
 #: changes only the EC path).  Stated before it first ran on the card:
 #: crush_map launches by call site; the executor's launches (an object's
-#: encode is one launch of one K1 with the rows of all 12 positions;
-#: each recover launch one K1); the batch queues launch nothing
+#: encode is one gf_apply_segments launch for the parity rows of all 12
+#: positions; each recover launch one, unpadded, since every position is
+#: on the card); the batch queues launch nothing, and K1 never
 MESH_POSITIONS = 12
 OSD_MESH_D1_RANGES = {"objecter": (1, 12), "epoch": (50, 3000),
                       "backfill": (0, 400)}
-OSD_MESH_RANGES = {"encode launches": (64, 96), "encode k1": (64, 96),
-                   "recover launches": (1, 400), "recover k1": (1, 400)}
+OSD_MESH_RANGES = {"encode launches": (64, 96), "encode seg": (64, 96),
+                   "recover launches": (1, 400), "recover seg": (1, 400)}
 
 
 def chunk_digests(objects, k, m):
@@ -2922,9 +2932,9 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
         if not mesh or ex is None:
             return {}
         return {"encode launches": ex.encode_launches,
-                "encode k1": ex.k1_encode,
+                "encode seg": ex.seg_encode,
                 "recover launches": ex.recover_launches,
-                "recover k1": ex.k1_recover,
+                "recover seg": ex.seg_recover,
                 "in-process sub-ops": ex.inproc_subops,
                 "encode busy s": ex.busy_s["encode"],
                 "recover busy s": ex.busy_s["recover"]}
@@ -3015,6 +3025,7 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
         fill_0, walls_0 = queue_perf("batch_fill"), {
             key: queue_perf(key)[0] for key in group_steps}
         w_k1, w_d1 = kernel.gf_apply_launches, ck.crush_map_launches
+        w_seg = kernel.gf_apply_segments_launches
         lw_0 = {key: (r["pid"], r["gf_apply_launches"],
                       r["crush_map_launches"])
                 for key, r in lane_state.items()}
@@ -3027,7 +3038,9 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
             return res
 
         with device_timer(torch, kernel, "gf_apply", on_card) as k1_ev, \
-                device_timer(torch, ck, "crush_map", on_card) as d1_ev:
+                device_timer(torch, ck, "crush_map", on_card) as d1_ev, \
+                device_timer(torch, kernel, "gf_apply_segments",
+                              on_card and mesh) as seg_ev:
             t = time.perf_counter()
             res = await asyncio.gather(*[one(c) for c in coros])
             walls[label] = time.perf_counter() - t
@@ -3036,7 +3049,8 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
         k1_1, d1_1 = k1_counts(), d1_sites()
         fill_1 = queue_perf("batch_fill")
         k1 = {q: n - k1_0.get(q, 0) for q, n in k1_1.items()}
-        spans[label] = events_ms(torch, k1_ev) + events_ms(torch, d1_ev)
+        spans[label] = (events_ms(torch, k1_ev) + events_ms(torch, d1_ev)
+                        + events_ms(torch, seg_ev))
         s = {"wall_s": walls[label], "p50_ms": _pct(lat, 50) * 1e3,
              "k1_span_ms": events_ms(torch, k1_ev),
              "d1_span_ms": events_ms(torch, d1_ev),
@@ -3051,8 +3065,11 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
         if mesh:
             s["mesh"] = {key: n - mesh_0[key]
                          for key, n in mesh_counts().items()}
-            s["mesh_k1"] = s["mesh"]["encode k1"] + s["mesh"]["recover k1"]
+            s["mesh_seg"] = (s["mesh"]["encode seg"]
+                             + s["mesh"]["recover seg"])
+            s["seg_span_ms"] = events_ms(torch, seg_ev)
         w_k1 = kernel.gf_apply_launches - w_k1
+        w_seg = kernel.gf_apply_segments_launches - w_seg
         w_d1 = ck.crush_map_launches - w_d1
         if proc:
             # the wrappers' own counts in the workers, by worker pid
@@ -3080,11 +3097,13 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
                   f"{label}: the workers' crush_map launches "
                   f"{s['lane_d1']}, by call site {s['d1']}")
         elif on_card:
-            mesh_k1 = s.get("mesh_k1", 0)
-            check(w_k1 == s["k1"] + mesh_k1 == len(k1_ev),
+            check(w_k1 == s["k1"] == len(k1_ev),
                   f"{label}: gf_apply launches {w_k1}, the queues' "
-                  f"{s['k1']}, the mesh executor's {mesh_k1}, timed "
-                  f"{len(k1_ev)}")
+                  f"{s['k1']}, timed {len(k1_ev)}")
+            mesh_seg = s.get("mesh_seg", 0)
+            check(w_seg == mesh_seg == len(seg_ev),
+                  f"{label}: gf_apply_segments launches {w_seg}, the mesh "
+                  f"executor's {mesh_seg}, timed {len(seg_ev)}")
             check(w_d1 == sum(s["d1"].values()) == len(d1_ev),
                   f"{label}: crush_map launches {w_d1}, by call site "
                   f"{s['d1']}, timed {len(d1_ev)}")
@@ -3867,6 +3886,7 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
                 mesh_exec.disable()
                 mesh_exec.enable(devices=[dev] * mesh_positions)
             kernel.gf_apply_launches = 0      # the phase's counts from 0
+            kernel.gf_apply_segments_launches = 0
             ck.crush_map_launches = 0
             admin = state["admin"] = Rados(
                 ctx_of("client.admin"), MonMap.from_bytes(blob), device=dev)
@@ -4140,15 +4160,19 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
     d1 = out["d1_launches"]
     out["d1_wrapper"] = ck.crush_map_launches
     out["k1_wrapper"] = kernel.gf_apply_launches
+    out["seg_wrapper"] = kernel.gf_apply_segments_launches
     if proc:
         # this process launches only the Objecter's and the parents'
         # placements; the workers every K1 and the rest of D1
         out["d1_wrapper"] += out["lane_wrappers"]["crush_map"]
         out["k1_wrapper"] += out["lane_wrappers"]["gf_apply"]
     if mesh:
-        # every K1 of the phase in the executor, none from the queues
-        k1 = {"mesh encode": out["mesh_counts"]["encode k1"],
-              "mesh recover": out["mesh_counts"]["recover k1"]}
+        # every launch of the phase in the executor's segments kernel, no
+        # K1 from the queues
+        k1 = {}
+        out["seg_launches"] = {
+            "mesh encode": out["mesh_counts"]["encode seg"],
+            "mesh recover": out["mesh_counts"]["recover seg"]}
     else:
         k1 = {"encode": out["ec write"]["k1"],
               "degraded read": out["degraded read"]["k1"],
@@ -4174,6 +4198,9 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
                                f"{out['k1_by_queue']}")
             check(counts["in-process sub-ops"] > 0,
                   "mesh mode: no sub-op was delivered in process")
+            check(out["seg_wrapper"] == sum(out["seg_launches"].values()),
+                  f"gf_apply_segments launches {out['seg_wrapper']}, the "
+                  f"mesh executor's {out['seg_launches']}")
             for key, (lo, hi) in OSD_MESH_RANGES.items():
                 check(lo <= counts[key] <= hi,
                       f"mesh mode: {key} {counts[key]}, stated {lo}-{hi}")
@@ -4192,9 +4219,13 @@ def osd_phase(np, kernel, dev, smi, objects, tmpdir, osds=OSD_N, k=K, m=M,
     out["spans_ms"] = spans
     out["phase_s"] = time.perf_counter() - t_phase
     kernel_ms = sum(spans.values())
+    seg_note = (f", gf_apply_segments launches {out['seg_launches']}, the "
+                f"executor busy {out['mesh_counts']['encode busy s']:.4f} s "
+                f"encoding and {out['mesh_counts']['recover busy s']:.4f} s "
+                f"rebuilding" if mesh else "")
     print(f"phase {tag}: {out['phase_s']:.3f} s in all (host clock); "
           f"crush_map launches by call site {d1}, gf_apply launches by step "
-          f"{k1}; their wrapper spans {kernel_ms:.4f} ms (host work "
+          f"{k1}{seg_note}; their wrapper spans {kernel_ms:.4f} ms (host work "
           f"included), {kernel_ms / 10 / out['phase_s']:.4f} % of the "
           f"phase; card {smi}")
     return out
@@ -4215,53 +4246,183 @@ MESH_RECOVER_STRIPES = 64
 MESH_RECOVER_LOST = (1, 4)
 
 
+def device_kernels_per_run(torch, fn, runs=3):
+    """The device kernels (and memory operations) one run of fn() issues,
+    from torch.profiler's CUDA activities over ``runs`` runs, as
+    {"kernels": n, "memory ops": n} per run; None where the profiler
+    sees no device activity (CUPTI unavailable)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    dev_events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev_events:
+        return None
+    mem = sum(1 for e in dev_events
+              if e.name.lower().startswith(("memcpy", "memset")))
+    return {"kernels": (len(dev_events) - mem) / runs,
+            "memory ops": mem / runs}
+
+
+def segments_alone(torch, np, gf256, dev, smi, rng):
+    """gf_apply_segments alone against its plain version on the card, bit
+    for bit with the per-row sums: misaligned blocks (offsets of 1-15
+    bytes), ragged and zero-length segments, several input blocks per
+    segment, a [6, 8] matrix (more output rows than one row tile), the
+    segment cap (one launch of 32) and beyond it (the wrapper splits:
+    more than one launch, each counted).  Returns the launches made."""
+    from ceph_tpu_torch.ec import kernel
+    from ceph_tpu_torch.ec.kernel import Segment
+    k = K
+    launches0 = kernel.gf_apply_segments_launches
+    pool = torch.from_numpy(rng.integers(0, 256, 64 << 20,
+                                         dtype=np.uint8)).to(dev)
+    cases = []
+    for r in (2, 4, 6):
+        mat = rng.integers(1, 256, (r, k), dtype=np.uint8)
+        ops = kernel.from_reference_matrix(mat, dev)
+        for nseg in (5, 32, 40):
+            segs, off = [], 0
+            for i in range(nseg):
+                # 5 segments: one of each kind of length, up to 512 Ki;
+                # 32 at the cap, two input blocks each (64 in all)
+                S = int(rng.integers(1, 4 if nseg == 5 else 3))
+                L = ([1, 4099, 0, 1 << 19, 65536 + 7][i] if nseg == 5 else
+                     [0, 1, 15, 17, 4096, 4099, 65536 + 7]
+                     [int(rng.integers(0, 7))])
+                mis = int(rng.integers(1, 16)) if i % 2 else 0
+                nin = 2 if nseg == 32 else [1, 2, 4, 8][int(rng.integers(0, 4))]
+                per = k // nin
+                ins = []
+                for _ in range(nin):
+                    ld = L + int(rng.integers(0, 3)) * 16 + (mis and 3)
+                    n = S * per * ld
+                    base = off + mis
+                    ins.append(pool[base:base + n].view(S, per, ld)[:, :, :L])
+                    off = -(-(base + n) // 256) * 256
+                o = torch.empty((S, r, L + 32), dtype=torch.uint8,
+                                device=dev)[:, :, mis:mis + L]
+                segs.append(Segment(tuple(ins), o, bool(i % 3)))
+            cases.append((f"r={r} {nseg} segments", ops, segs))
+    bad = 0
+    for name, ops, segs in cases:
+        want_out = [torch.empty_like(sg.out) for sg in segs]
+        want = kernel.gf_apply_segments_plain(
+            ops.bitmat, [Segment(sg.inputs, w, sg.sum)
+                         for sg, w in zip(segs, want_out)], sums=True)
+        n0 = kernel.gf_apply_segments_launches
+        got = kernel.gf_apply_segments(ops, segs, sums=True)
+        torch.cuda.synchronize()
+        made = kernel.gf_apply_segments_launches - n0
+        if dev.type == "cuda":
+            check(made == 1 if len(segs) <= kernel.SEGMENT_CAP
+                  else made > 1, f"gf_apply_segments {name}: {made} "
+                                 f"launches")
+        n = sum(int((sg.out != w).sum().item())
+                for sg, w in zip(segs, want_out))
+        n += int((got != want).sum().item())
+        bad += n
+        print(f"phase mesh steps gf_apply_segments alone {name}: {n} "
+              f"mismatched bytes and sums against the plain version in "
+              f"{made} launches; card {smi}")
+        check(n == 0, f"gf_apply_segments {name}: {n} mismatches")
+    return kernel.gf_apply_segments_launches - launches0, bad
+
+
 def mesh_steps_phase(torch, np, gf256, dev, smi, flush,
                      rec_stripes=()):
     """D3 and D4 alone on the card, each held bit for bit against the same
-    step with K1's plain version (``plain=True``) and timed by median CUDA
-    events with L2 flushed, beside its bytes bound (inputs read once,
-    outputs written once; moves between positions on one device move no
-    bytes): ``ec_cluster_step`` over 12 positions (3 x 4) at [12, 8,
-    512 Ki]; ``ec_recover_step`` over 8 positions (1 x 8: one survivor
-    each) at [64, 8, 512 Ki], 2 data chunks lost, also against the
-    original data; ``_mesh_recover_fn`` over the mesh run's 12 positions
-    (3 x 4) at the stripe counts that run stacked (``rec_stripes``: 1 and
-    the largest), padded as ``MeshExecutor._rec_launch`` pads them, its
-    bound counting the stripes alone, with the pad's cost at one stripe
-    (a 1 x 8 mesh needs none; also staged from the host); and
+    step on the segments kernel's plain version (``plain=True``) and
+    timed by median CUDA events with L2 flushed, beside its bytes bound
+    (inputs read once, outputs written once; moves between positions on
+    one device move no bytes): ``ec_cluster_step`` over 12 positions (3 x
+    4) at [12, 8, 512 Ki]; ``ec_recover_step`` over 8 positions (1 x 8:
+    one survivor each) at [64, 8, 512 Ki], 2 data chunks lost, also
+    against the original data; the mesh run's rebuild on one card
+    (``_mesh_rebuild_fn``, unpadded) at the stripe counts that run
+    stacked (``rec_stripes``: 1 and the largest), also staged from the
+    host as ``MeshExecutor._rec_launch`` stages it; and
     ``_mesh_encode_fn`` at n = 12, k = 8, 512 Ki lanes (reading the k
-    data rows), also against the data rows.  Returns one row per
-    step."""
+    data rows, writing the m parity rows), also against the data and
+    its parity.  Each step makes one gf_apply_segments launch per run and
+    no K1.  First gf_apply_segments alone (``segments_alone``).  Returns
+    (one row per step, the segments alone row)."""
     from ceph_tpu_torch.ec import kernel
+    from ceph_tpu_torch.ec.kernel import Segment
     from ceph_tpu_torch.parallel import layout, mesh_exec
     rng = np.random.default_rng(SEED + 48)
+    # a step's host work shares the interpreter with whatever threads the
+    # earlier phases left running
+    print(f"phase mesh steps: {threading.active_count()} threads alive in "
+          f"this process")
+    alone_launches, alone_bad = segments_alone(torch, np, gf256, dev, smi,
+                                               rng)
+    steps0 = kernel.gf_apply_segments_launches
     gen = gf256.rs_vandermonde_matrix(K, M)
     L = MESH_LANES
     rows = []
 
     def row(name, step, plain, x, out_bytes, in_bytes, extra):
+        k1_0, runs_0 = kernel.gf_apply_launches, step.runs
+        seg_0 = step.seg_launches
         got, want = step(x), plain(x)
+        seg = (step.seg_launches - seg_0) / (step.runs - runs_0)
+        k1 = kernel.gf_apply_launches - k1_0
+        def whole(t):
+            return t.gather() if isinstance(t, layout.Sharded) else t
+
         if isinstance(got, tuple):
-            pairs = [(got[0].gather(), want[0].gather()), (got[1], want[1])]
+            pairs = [(whole(got[0]), whole(want[0])), (got[1], want[1])]
         else:
-            pairs = [(got.gather(), want.gather())]
+            pairs = [(whole(got), whole(want))]
         bad = sum(int((a != b).sum().item()) for a, b in pairs)
         err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max()
                       .item()) for a, b in pairs)
-        k1 = step.k1_launches / step.runs
         ms = median_ms(torch, lambda: step(x), 25, flush)
         plain_ms = median_ms(torch, lambda: plain(x), 5, flush)
         bound_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+        kern = device_kernels_per_run(torch, lambda: step(x))
+        # the step's launch alone: its gf_apply_segments call recorded
+        # during one run and replayed (the rest of the step's time is
+        # its host work: building the segments and the launch records)
+        calls, real = [], kernel.gf_apply_segments
+
+        def record(*args, **kwargs):
+            calls.append((args, kwargs))
+            return real(*args, **kwargs)
+
+        kernel.gf_apply_segments = record
+        try:
+            step(x)
+        finally:
+            kernel.gf_apply_segments = real
+        launch_ms = median_ms(torch, lambda: [real(*a, **kw)
+                                              for a, kw in calls], 25, flush)
         r = {"name": name, "mismatches": bad, "max_abs_err": err,
-             "k1_per_run": k1, "ms": ms, "plain_ms": plain_ms,
-             "bound_ms": bound_ms, "bound_by": "bytes", **extra}
+             "seg_per_run": seg, "k1_per_run": k1,
+             "device_kernels_per_run": kern if kern is not None
+             else "not measured", "ms": ms, "launch_ms": launch_ms,
+             "plain_ms": plain_ms, "bound_ms": bound_ms,
+             "bound_by": "bytes", **extra}
         rows.append(r)
         check(bad == 0, f"{name}: {bad} bytes differ from the plain step")
+        check(seg == (dev.type == "cuda") and k1 == 0,
+              f"{name}: {seg} gf_apply_segments and {k1} K1 launches per "
+              f"run, stated 1 and 0")
         print(f"phase mesh steps {name}: {extra['shape']} over "
               f"{extra['mesh']}: {bad} mismatched bytes against the plain "
-              f"step; K1 launches per run {k1:g}; median {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, bytes bound {bound_ms:.4f} ms "
-              f"({bound_ms / ms * 100:.1f}% of bound); card {smi}")
+              f"step; gf_apply_segments launches per run {seg:g}, K1 "
+              f"{k1}; device kernels per run "
+              f"{kern if kern is not None else 'not measured'}; median "
+              f"{ms:.4f} ms (its launch alone {launch_ms:.4f} ms), plain "
+              f"{plain_ms:.4f} ms, bytes bound {bound_ms:.4f} ms "
+              f"({bound_ms / ms * 100:.1f}% of bound; the launch alone "
+              f"{bound_ms / launch_ms * 100:.1f}%); card {smi}")
         return got
 
     positions = [dev] * MESH_POSITIONS
@@ -4297,68 +4458,106 @@ def mesh_steps_phase(torch, np, gf256, dev, smi, flush,
     check(torch.equal(got[0].gather(), full[:, lost, :]),
           "ec_recover_step: the rebuilt chunks differ from the data")
 
-    # _mesh_recover_fn as the mesh run calls it: 8 survivors over the 12
-    # positions (3 x 4), B stripes padded to Bp, a host-row multiple; at
-    # B = 1 (a degraded read) and at the largest B the run stacked
-    positions = (layout.position_device(dev),) * MESH_POSITIONS
+    # the mesh run's rebuild: every position on the card, so no pad: B
+    # stripes of one length, one segment; at B = 1 (a degraded read) and
+    # at the largest B the run stacked; also from host arrays through the
+    # executor's own staging, launch and fetch
+    dev0 = layout.position_device(dev)
     dec_bytes = np.ascontiguousarray(dec, np.uint8).tobytes()
-    fn, host = mesh_exec._mesh_recover_fn(K, len(lost), dec_bytes,
-                                          positions)
-    pfn, _ = mesh_exec._mesh_recover_fn(K, len(lost), dec_bytes,
-                                        positions, True)
+    fn = mesh_exec._mesh_rebuild_fn(K, len(lost), dec_bytes, dev0)
+    pfn = mesh_exec._mesh_rebuild_fn(K, len(lost), dec_bytes, dev0, True)
+    rex = mesh_exec.MeshExecutor(devices=[dev0] * MESH_POSITIONS)
     for b in sorted({1, max(rec_stripes, default=1)}):
         d = torch.from_numpy(rng.integers(0, 256, (K, b * L),
                                           dtype=np.uint8)).to(dev)
         p = kernel.gf_apply(kernel.from_reference_matrix(gen[K:], dev), d)
         f = torch.cat([d, p]).view(K + M, b, L).permute(1, 0, 2)
-        bp = host * mesh_exec._pow2_at_least(-(-b // host))
-        inp = torch.zeros((bp, K, L), dtype=torch.uint8, device=dev)
-        inp[:b] = f[:, present, :]
-        extra = {"mesh": {"host": host, "shard": MESH_POSITIONS // host},
-                 "stripes": b, "padded_stripes": bp,
-                 "shape": f"[{b}, {K}, {L}] padded to [{bp}, {K}, {L}] "
-                          f"-> [{bp}, {len(lost)}, {L}] uint8 + scrub "
-                          f"[{len(lost)}], lost {lost}"}
-        if b == 1 and host > 1:
-            # what the pad costs: the same stripe on a 1 x 8 mesh (no
-            # pad), and both staged from the host as _rec_launch stages
-            one, _ = mesh_exec._mesh_recover_fn(K, len(lost), dec_bytes,
-                                                positions[:K])
-            x1 = inp[:1].contiguous()
-            h1, hp = x1.cpu(), inp.cpu()
-            extra["unpadded_ms"] = median_ms(torch, lambda: one(x1), 25,
-                                             flush)
-            extra["staged_ms"] = median_ms(torch, lambda: fn(hp), 25,
-                                           flush)
-            extra["unpadded_staged_ms"] = median_ms(
-                torch, lambda: one(h1), 25, flush)
-            print(f"phase mesh steps mesh_recover B=1: padded to {bp} "
-                  f"stripes against 1 x {K} unpadded "
-                  f"{extra['unpadded_ms']:.4f} ms; staged from the host "
-                  f"{extra['staged_ms']:.4f} ms against "
-                  f"{extra['unpadded_staged_ms']:.4f} ms; card {smi}")
+        inp = f[:, present, :].contiguous()
+        host = [a for a in inp.cpu().numpy()]
+        key = (K, len(lost), dec_bytes)
+        staged = rex._rec_one_device(key, host)[0]
+        check(all(np.array_equal(s, w) for s, w in
+                  zip(staged, f[:, lost, :].cpu().numpy())),
+              f"mesh_recover B={b}: the executor's staged rebuild differs "
+              f"from the data")
+        extra = {"mesh": {"positions": MESH_POSITIONS, "devices": 1},
+                 "stripes": b, "padded_stripes": b,
+                 "staged_ms": median_ms(
+                     torch, lambda: rex._rec_one_device(key, host), 11,
+                     flush),
+                 "shape": f"[{b}, {K}, {L}] -> [{b}, {len(lost)}, {L}] "
+                          f"uint8 + scrub [{len(lost)}], lost {lost}, "
+                          f"unpadded"}
         got = row(f"mesh_recover B={b}", fn, pfn, inp, b * len(lost) * L,
                   b * K * L, extra)
-        check(torch.equal(got[0].gather()[:b], f[:, lost, :]),
+        del host
+        print(f"phase mesh steps mesh_recover B={b}: staged from the host "
+              f"and fetched by the executor {extra['staged_ms']:.4f} ms; "
+              f"card {smi}")
+        check(torch.equal(got[0], f[:, lost, :]),
               f"mesh_recover B={b}: the rebuilt chunks differ from the "
               f"data")
 
-    dev0 = layout.position_device(dev)
+    rex._pool.shutdown()
     gen_bytes = np.ascontiguousarray(gen, np.uint8).tobytes()
     fn, _ = mesh_exec._mesh_encode_fn(K + M, K, gen_bytes,
                                       (dev0,) * (K + M))
     pfn, _ = mesh_exec._mesh_encode_fn(K + M, K, gen_bytes,
                                        (dev0,) * (K + M), True)
-    inp = torch.zeros((K + M, L), dtype=torch.uint8, device=dev)
-    inp[:K] = stripes[:, :L]
-    got = row("mesh_encode", fn, pfn, inp, (K + M) * L, K * L,
-              {"mesh": {"shard": K + M},
-               "shape": f"[{K + M}, {L}] -> [{K + M}, {L}] uint8 "
-                        f"(data rows in, each position its shard out)"})
+    inp = stripes[:, :L].contiguous()
+    # the executor's encode of one object whose chunks are these rows,
+    # its launch body alone as the rebuild's is timed (staged, launched,
+    # the parity fetched; host clock inside CUDA events, and it ends in a
+    # synchronous fetch)
+    from ceph_tpu_torch.ec.registry import factory
+    codec = factory("rs", {"k": str(K), "m": str(M)}, device="cpu")
+    obj = inp.cpu().numpy().tobytes()
+    ex = mesh_exec.MeshExecutor(devices=[dev0] * (K + M))
+    enc = asyncio.run(ex.encode_object(codec, obj))
+    check(all(np.array_equal(enc[i], c) for i, c in
+              codec.encode(set(range(K + M)), obj).items()),
+          "mesh_encode: the executor's chunks differ from the codec's")
+    chunks = codec.split_data(obj)
+    encode_staged_ms = median_ms(
+        torch, lambda: ex._encode_launch(gen, K + M, chunks), 11, flush)
+    ex._pool.shutdown()
+    print(f"phase mesh steps mesh_encode: one 4 MiB object's launch body "
+          f"in the executor (staged, launched, parity fetched) "
+          f"{encode_staged_ms:.4f} ms; card {smi}")
+    got = row("mesh_encode", fn, pfn, inp, M * L, K * L,
+              {"mesh": {"shard": K + M}, "staged_ms": encode_staged_ms,
+               "shape": f"[{K}, {L}] -> [{K + M}, {L}] uint8 (data rows "
+                        f"in, each position its shard out; the m parity "
+                        f"rows written)"})
     check(torch.equal(got.gather()[:K], stripes[:, :L])
           and torch.equal(got.gather()[K:], parity[:, :L]),
           "mesh_encode: the shards differ from the data and its parity")
-    return rows
+    steps_launches = kernel.gf_apply_segments_launches - steps0
+    alone0 = kernel.gf_apply_segments_launches
+    # the kernel alone at the mesh encode's shape: 8 data rows of one
+    # buffer -> 4 parity rows, one segment
+    ops = kernel.from_reference_matrix(gen[K:], dev)
+    out = torch.empty((M, L), dtype=torch.uint8, device=dev)
+    segs = [Segment((inp,), out, False)]
+    plain_out = torch.empty_like(out)
+    seg_ms = median_ms(torch, lambda: kernel.gf_apply_segments(ops, segs),
+                       25, flush)
+    seg_plain_ms = median_ms(torch, lambda: kernel.gf_apply_segments_plain(
+        ops.bitmat, [Segment((inp,), plain_out, False)]), 5, flush)
+    alone = {"launches": alone_launches
+             + kernel.gf_apply_segments_launches - alone0,
+             "steps_launches": steps_launches, "mismatches": alone_bad
+             + int((out != plain_out).sum().item()),
+             "ms": seg_ms, "plain_ms": seg_plain_ms,
+             "bound_ms": (K + M) * L / HBM_BYTES_PER_S * 1e3,
+             "shape": f"1 segment [{K}, {L}] -> [{M}, {L}] uint8"}
+    check(alone["mismatches"] == 0, "gf_apply_segments at the encode's "
+                                    "shape differs from its plain version")
+    print(f"phase mesh steps gf_apply_segments {alone['shape']}: median "
+          f"{seg_ms:.4f} ms, plain {seg_plain_ms:.4f} ms, bytes bound "
+          f"{alone['bound_ms']:.4f} ms "
+          f"({alone['bound_ms'] / seg_ms * 100:.1f}% of bound); card {smi}")
+    return rows, alone
 
 
 #: the operator path (phase 20): the port run as Ceph is run, by vstart and
@@ -4564,6 +4763,20 @@ def operator_phase(np, dev, smi, tmpdir, op=OPERATOR):
         cl.write_configs()
         cl.start_daemons()
         procs.update(cl.procs)
+
+        def mons_answer():
+            # a client's first connect waits 30 s for an osdmap; 19
+            # daemon processes starting on the host's cores can take
+            # longer, so the boot's own bound applies
+            async def connect():
+                await (await cl.admin()).shutdown()
+            try:
+                asyncio.run(connect())
+            except TimeoutError:
+                return False
+            return True
+
+        wait(mons_answer, "a client's first osdmap from the mons")
         asyncio.run(cl.bootstrap())
         walls["boot"] = time.perf_counter() - t
         st = mark("boot")
@@ -5289,8 +5502,9 @@ def main() -> int:
     del objects
     # -- phase 18: D3 and D4 alone, against their plain versions ---------
     rec_stripes = meshed["recover_stripes"]
-    mesh_steps = {r["name"]: r for r in mesh_steps_phase(
-        torch, np, gf256, dev, smi, flush, rec_stripes)}
+    step_rows, seg_alone = mesh_steps_phase(torch, np, gf256, dev, smi,
+                                            flush, rec_stripes)
+    mesh_steps = {r["name"]: r for r in step_rows}
     # -- phase 19: one model-checker run ----------------------------------
     from ceph_tpu_torch.ops import crush_kernel as ck
     model = model_phase(kernel, ck, smi)
@@ -5457,15 +5671,42 @@ def main() -> int:
         "bound_by": crush["win_bound_by"],
         "library_ms": None,
         "shape": crush["win_shape"],
+    }, {
+        "name": "gf_apply_segments",
+        "route": "cuda",
+        "source": "ceph_tpu_torch/csrc/gf_apply.cu",
+        "replaces": "ceph_tpu/parallel/layout.py:65",
+        "replaces_function": "the mesh steps' shard_map programs: "
+                             "ec_cluster_step, ec_recover_step "
+                             "(ceph_tpu/parallel/layout.py:65, :101), "
+                             "_mesh_recover_fn, _mesh_encode_fn "
+                             "(ceph_tpu/parallel/mesh_exec.py:58, :86)",
+        "launches": sum(meshed["seg_launches"].values()),
+        "launches_by_path": {
+            "osd mesh encode": meshed["seg_launches"]["mesh encode"],
+            "osd mesh recover": meshed["seg_launches"]["mesh recover"],
+            "steps alone": seg_alone["steps_launches"],
+            "kernel alone": seg_alone["launches"]},
+        "mismatches": seg_alone["mismatches"],
+        "max_abs_err": 0 if seg_alone["mismatches"] == 0 else None,
+        "ms": seg_alone["ms"],
+        "plain_ms": seg_alone["plain_ms"],
+        "bound_ms": seg_alone["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "shape": seg_alone["shape"],
     }] + [{
         "name": name,
-        "route": "cuda: K1 launches and in-process collectives",
+        "route": "cuda: gf_apply_segments and in-process collectives",
         "source": src,
         "replaces": replaces,
         "replaces_function": fn_name,
         "launches": launches,
         "launches_by_path": {"osd mesh": launches},
+        "seg_per_launch": mesh_steps[name]["seg_per_run"],
         "k1_per_launch": mesh_steps[name]["k1_per_run"],
+        "device_kernels_per_run":
+            mesh_steps[name]["device_kernels_per_run"],
         "mismatches": mesh_steps[name]["mismatches"],
         "max_abs_err": mesh_steps[name]["max_abs_err"],
         "ms": mesh_steps[name]["ms"],
@@ -5476,8 +5717,8 @@ def main() -> int:
         "mesh": mesh_steps[name]["mesh"],
         "shape": mesh_steps[name]["shape"],
         **{key: mesh_steps[name][key] for key in (
-            "stripes", "padded_stripes", "unpadded_ms", "staged_ms",
-            "unpadded_staged_ms") if key in mesh_steps[name]},
+            "launch_ms", "stripes", "padded_stripes", "staged_ms")
+           if key in mesh_steps[name]},
     } for name, src, replaces, fn_name, launches in (
         ("ec_cluster_step", "ceph_tpu_torch/parallel/layout.py",
          "ceph_tpu/parallel/layout.py:65", "ec_cluster_step (D3)", 0),
@@ -5485,8 +5726,8 @@ def main() -> int:
          "ceph_tpu/parallel/layout.py:101", "ec_recover_step (D3)", 0),
         *[(f"mesh_recover B={b}", "ceph_tpu_torch/parallel/mesh_exec.py",
            "ceph_tpu/parallel/mesh_exec.py:58",
-           "_mesh_recover_fn (D4) over ec_recover_step (D3, "
-           "ceph_tpu/parallel/layout.py:101)",
+           "_mesh_recover_fn (D4; on one card _mesh_rebuild_fn, "
+           "unpadded)",
            # the run's launches of one stripe, and of more than one (timed
            # at the most the run stacked)
            sum(n for sb, n in rec_stripes.items() if (sb == 1) == (b == 1)))

@@ -1,7 +1,8 @@
 """Card-only checks of the port: the CUDA kernel against its plain version
 on the card, the batch queue's device path on CUDA, the messenger
-carrying the kernel's chunks, the stores holding them, and a mon quorum's
-map feeding placement and rebuild.
+carrying the kernel's chunks, the stores holding them, a mon quorum's
+map feeding placement and rebuild, and the segments kernel with the mesh
+steps and executor built on it.
 
 Marked ``gpu``.  Whether a card is present is decided inside the
 ``cuda`` fixture, so every worker collects the same tests; without a
@@ -602,3 +603,182 @@ def test_mon_phase_through_d1_and_k1_on_card(cuda, tmp_path):
     assert out["k1_launches"]["encode"] > 0
     assert out["k1_launches"]["rebuild"] > 0
     assert out["moved_shards"] == sum(out["lost"].values())
+
+
+# ------------------------------------------------- gf_apply_segments (D3, D4)
+
+def _segments(rng, dev, r, k, lens, stripes=2, nin=2, misalign=0):
+    """Segments over a pool buffer: each of ``lens`` with ``nin`` input
+    blocks of k / nin rows at their own offsets and row strides (shifted
+    by ``misalign`` bytes), and an output of padded rows."""
+    from ceph_tpu_torch.ec.kernel import Segment
+    per = k // nin
+    pool = torch.from_numpy(rng.integers(
+        0, 256, sum(nin * (stripes * per * (L + 48) + 512) for L in lens),
+        dtype=np.uint8)).to(dev)
+    segs, off = [], 0
+    for i, L in enumerate(lens):
+        ins = []
+        for _ in range(nin):
+            ld = L + 16 * int(rng.integers(0, 3)) + (3 if misalign else 0)
+            n = stripes * per * ld
+            ins.append(pool[off + misalign:off + misalign + n]
+                       .view(stripes, per, ld)[:, :, :L])
+            off = -(-(off + misalign + n) // 256) * 256
+        out = torch.empty((stripes, r, L + 32), dtype=torch.uint8,
+                          device=dev)[:, :, misalign:misalign + L]
+        segs.append(Segment(tuple(ins), out, i % 3 != 2))
+    return segs
+
+
+def _check_segments(ops, segs):
+    from ceph_tpu_torch.ec.kernel import Segment
+    want_out = [torch.empty_like(sg.out) for sg in segs]
+    want = kernel.gf_apply_segments_plain(
+        ops.bitmat, [Segment(sg.inputs, w, sg.sum)
+                     for sg, w in zip(segs, want_out)], sums=True)
+    got = kernel.gf_apply_segments(ops, segs, sums=True)
+    torch.cuda.synchronize()
+    for sg, w in zip(segs, want_out):
+        assert torch.equal(sg.out, w)
+    assert torch.equal(got, want)
+    # the sums are each summed output row's bytes, mod 2^32
+    total = sum(sg.out.sum(dim=(0, 2), dtype=torch.int64) for sg in segs
+                if sg.sum) % (1 << 32)
+    assert torch.equal(got, total)
+
+
+@pytest.mark.parametrize("r", [1, 2, 4, 6, 9])
+@pytest.mark.parametrize("misalign", [0, 5])
+@pytest.mark.parametrize("nin", [1, 2, 8])
+def test_segments_match_plain_on_card(cuda, r, misalign, nin):
+    rng = np.random.default_rng(100 * r + 10 * misalign + nin)
+    ops = kernel.from_reference_matrix(
+        rng.integers(0, 256, (r, 8), dtype=np.uint8), cuda)
+    lens = [1, 15, 16, 17, 2048, 2049, 4096 * 3 + 7, 0, 1 << 18]
+    _check_segments(ops, _segments(rng, cuda, r, 8, lens, nin=nin,
+                                   misalign=misalign))
+
+
+def test_segments_cap_and_split_on_card(cuda):
+    rng = np.random.default_rng(7)
+    ops = kernel.from_reference_matrix(
+        gf256.rs_vandermonde_matrix(8, 4)[8:], cuda)
+    at_cap = _segments(rng, cuda, 4, 8, [999] * kernel.SEGMENT_CAP)
+    before = kernel.gf_apply_segments_launches
+    _check_segments(ops, at_cap)
+    assert kernel.gf_apply_segments_launches == before + 1
+    # 33 segments, one past the cap: the wrapper splits, each launch counted
+    beyond = _segments(rng, cuda, 4, 8, [4097] * (kernel.SEGMENT_CAP + 1))
+    before = kernel.gf_apply_segments_launches
+    _check_segments(ops, beyond)
+    assert kernel.gf_apply_segments_launches == before + 2
+    # input blocks beyond the cap split too: 72 blocks of one row each, at
+    # falling addresses so that none fold
+    from ceph_tpu_torch.ec.kernel import Segment
+    many = [Segment(sg.inputs[::-1], sg.out, sg.sum)
+            for sg in _segments(rng, cuda, 4, 8, [300] * 9, nin=8)]
+    before = kernel.gf_apply_segments_launches
+    _check_segments(ops, many)
+    assert kernel.gf_apply_segments_launches == before + 2
+
+
+def test_segments_refuse_what_the_kernel_does_not_take(cuda):
+    from ceph_tpu_torch.ec.kernel import Segment
+    ops = kernel.from_reference_matrix(
+        gf256.rs_vandermonde_matrix(4, 2)[4:], cuda)
+    data = torch.zeros((1, 4, 1024), dtype=torch.uint8, device=cuda)
+    out = torch.empty((1, 2, 1024), dtype=torch.uint8, device=cuda)
+    before = kernel.gf_apply_segments_launches
+    with pytest.raises(ValueError):                 # a foreign device
+        kernel.gf_apply_segments(ops, [Segment((data.cpu(),), out)])
+    with pytest.raises(ValueError, match="contiguous"):
+        kernel.gf_apply_segments(ops, [Segment((data[:, :, ::2],),
+                                               out[:, :, :512])])
+    with pytest.raises(ValueError):                 # rows that miss k
+        kernel.gf_apply_segments(ops, [Segment((data[:, :3],), out)])
+    # one segment of more input blocks than a launch carries: one-row
+    # blocks at falling addresses, which never fold
+    k = kernel.SEGMENT_INPUT_CAP + 1
+    wide = kernel.from_reference_matrix(np.random.default_rng(3).integers(
+        0, 256, (2, k), dtype=np.uint8), cuda)
+    rows = torch.zeros((k, 1024), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="input blocks"):
+        kernel.gf_apply_segments(wide, [Segment(
+            tuple(rows[i:i + 1].unsqueeze(0) for i in reversed(range(k))),
+            out)])
+    assert kernel.gf_apply_segments_launches == before
+
+
+def test_mesh_steps_on_card_match_their_plain_versions(cuda):
+    """Each mesh step on the new route: one gf_apply_segments launch per
+    run and no K1, bit for bit against its plain version."""
+    from ceph_tpu_torch.parallel import layout, mesh_exec
+    rng = np.random.default_rng(16)
+    gen = gf256.rs_vandermonde_matrix(8, 4)
+    dev0 = layout.position_device(cuda)
+
+    def same(step, plain, x):
+        k1, seg = kernel.gf_apply_launches, step.seg_launches
+        got, want = step(x), plain(x)
+        assert step.seg_launches == seg + 1
+        assert kernel.gf_apply_launches == k1
+        whole = [t.gather() if isinstance(t, layout.Sharded) else t
+                 for t in (got if isinstance(got, tuple) else (got,))]
+        ref = [t.gather() if isinstance(t, layout.Sharded) else t
+               for t in (want if isinstance(want, tuple) else (want,))]
+        assert all(torch.equal(a, b) for a, b in zip(whole, ref))
+        return whole
+
+    mesh = layout.make_mesh(12, devices=[cuda] * 12)
+    data = torch.from_numpy(rng.integers(0, 256, (6, 8, 4 * 3000),
+                                         dtype=np.uint8)).to(cuda)
+    same(layout.ec_cluster_step(mesh, gen[8:]),
+         layout.ec_cluster_step(mesh, gen[8:], plain=True), data)
+    lost = [1, 9]
+    present = [i for i in range(12) if i not in lost][:8]
+    dec = gf256.decode_matrix(gen, present, lost)
+    surv = torch.from_numpy(rng.integers(0, 256, (4, 8, 5001),
+                                         dtype=np.uint8)).to(cuda)
+    mesh8 = layout.make_mesh(8, devices=[cuda] * 8)
+    same(layout.ec_recover_step(mesh8, dec, 8),
+         layout.ec_recover_step(mesh8, dec, 8, plain=True), surv)
+    dec_bytes = np.ascontiguousarray(dec, np.uint8).tobytes()
+    ragged = [surv[0, :, :17], surv[1], surv[2, :, :4096]]
+    same(mesh_exec._mesh_rebuild_fn(8, 2, dec_bytes, dev0),
+         mesh_exec._mesh_rebuild_fn(8, 2, dec_bytes, dev0, True), surv)
+    got = mesh_exec._mesh_rebuild_fn(8, 2, dec_bytes, dev0)(ragged)[0]
+    for s, g in zip(ragged, got):
+        assert torch.equal(g, kernel.gf_apply_plain(
+            kernel.from_reference_matrix(dec, cuda).bitmat, s))
+    gen_bytes = np.ascontiguousarray(gen, np.uint8).tobytes()
+    shards = same(mesh_exec._mesh_encode_fn(12, 8, gen_bytes, (dev0,) * 12)[0],
+                  mesh_exec._mesh_encode_fn(12, 8, gen_bytes, (dev0,) * 12,
+                                            True)[0], data[0])[0]
+    assert torch.equal(shards[:8], data[0])
+
+
+def test_executor_on_card_rebuilds_unpadded_as_the_codec(cuda):
+    from ceph_tpu_torch.ec.registry import factory
+    from ceph_tpu_torch.parallel import mesh_exec
+    codec = factory("rs", {"k": "8", "m": "4"}, device="cpu")
+    ex = mesh_exec.MeshExecutor(devices=[cuda] * 12)
+    rng = np.random.default_rng(17)
+    objects = [rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+               for n in (5000, 1 << 16, 123457)]
+
+    async def run():
+        enc = [await ex.encode_object(codec, o) for o in objects]
+        recs = await asyncio.gather(*[
+            ex.recover_chunks(codec, [0, 9], {i: c for i, c in e.items()
+                                              if i not in (0, 9)})
+            for e in enc])
+        return enc, recs
+
+    enc, recs = asyncio.run(run())
+    for o, e, r in zip(objects, enc, recs):
+        want = codec.encode(set(range(12)), o)
+        assert all(np.array_equal(e[i], want[i]) for i in range(12))
+        assert all(np.array_equal(r[i], want[i]) for i in (0, 9))
+    assert ex.seg_encode == 3 and ex.seg_recover == ex.recover_launches
+    assert sum(ex.rec_stripes.values()) == ex.recover_launches

@@ -155,7 +155,7 @@ def test_degraded_reads_and_a_rebuild_in_mesh_mode(cpu_mesh, shards):
             for n, d in payloads.items():
                 assert await io.read(n) == d
             assert not calls, "a batch queue took a request in mesh mode"
-            assert ex.k1_encode == ex.k1_recover == 0     # the CPU: plain
+            assert ex.seg_encode == ex.seg_recover == 0   # the CPU: plain
             await cl.stop()
     asyncio.run(run())
 
@@ -257,9 +257,11 @@ def test_chip_smoke_mesh_phase_on_the_cpu(tmp_path, capsys):
     assert counts["encode launches"] == len(objects)
     assert counts["recover launches"] >= 1
     assert counts["in-process sub-ops"] > 0
-    assert counts["encode k1"] == counts["recover k1"] == 0   # the CPU
+    assert counts["encode seg"] == counts["recover seg"] == 0   # the CPU
     assert set(out["d1_launches"]) == set(chip_smoke.OSD_MESH_D1_RANGES)
-    assert out["k1_launches"] == {"mesh encode": 0, "mesh recover": 0}
+    assert out["k1_launches"] == {}
+    assert out["seg_launches"] == {"mesh encode": 0, "mesh recover": 0}
+    assert out["seg_wrapper"] == 0
     assert sum(out["k1_by_queue"].values()) == 0
     assert out["recovery"]["moved_shards"] > 0
     assert mesh_exec.current() is None
